@@ -1,0 +1,109 @@
+"""Struct-of-arrays keyframe map with fixed capacity and active masks.
+
+PyTorch port of ``deepfactors_tpu/mapping/map_state.py`` (reference
+keyframe_map.h:31-129, keyframe.h:33-97): all keyframe state lives in dense
+[K, ...] device tensors; "allocation" flips an active flag.
+
+Unlike the JAX package (immutable arrays, every write rebuilds the state),
+``add_keyframe`` and ``update_depth_all`` write the pools IN PLACE and
+return the same state object. The keyframe links and the depth gradient of
+the JAX map serve loop closure, eviction and geometric factors, which come
+with later slices.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import torch
+
+from ..geometry import se3 as se3m
+from ..geometry import warping as wp
+from ..geometry.se3 import SE3
+from ..ops import image as ip
+
+Tensor = torch.Tensor
+
+
+class LevelData(NamedTuple):
+    """Per-pyramid-level keyframe tensors, each [K, H_l, W_l, ...]."""
+
+    img: Tensor    # [K, H, W]
+    grad: Tensor   # [K, H, W, 2]
+    prx0: Tensor   # [K, H, W] zero-code proximity
+    jac: Tensor    # [K, CS, H, W] code Jacobian, feature-major
+    stdev: Tensor  # [K, H, W] log-b uncertainty
+    dpt: Tensor    # [K, H, W] materialised depth
+    vld: Tensor    # [K, H, W] validity
+
+
+class MapState(NamedTuple):
+    """The keyframe map. Capacity K static; ``active`` masks live slots."""
+
+    active: Tensor   # [K] bool
+    ids: Tensor      # [K] int32
+    pose: SE3        # q [K, 4], t [K, 3] — camera-to-world
+    code: Tensor     # [K, CS]
+    levels: tuple    # tuple[LevelData], finest first
+    next_id: Tensor  # [] int32
+
+
+def create(K: int, CS: int, H: int, W: int, num_levels: int,
+           device="cuda") -> MapState:
+    z = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype,
+                                                    device=device)
+    levels = []
+    for l in range(num_levels):
+        h, w = H >> l, W >> l
+        levels.append(LevelData(
+            img=z(K, h, w), grad=z(K, h, w, 2), prx0=z(K, h, w),
+            jac=z(K, CS, h, w), stdev=z(K, h, w),
+            dpt=torch.ones((K, h, w), dtype=torch.float32, device=device),
+            vld=z(K, h, w)))
+    return MapState(
+        active=z(K, dtype=torch.bool),
+        ids=torch.full((K,), -1, dtype=torch.int32, device=device),
+        pose=se3m.identity((K,), device=device),
+        code=z(K, CS),
+        levels=tuple(levels),
+        next_id=z(dtype=torch.int32),
+    )
+
+
+def add_keyframe(state: MapState, slot: int, pose: SE3, code: Tensor,
+                 img_pyr: Sequence[Tensor], grad_pyr: Sequence[Tensor],
+                 prx0_pyr: Sequence[Tensor], jacT_pyr: Sequence[Tensor],
+                 stdev_pyr: Sequence[Tensor], avg_dpt: float) -> MapState:
+    """Write a decoded keyframe into ``slot`` in place (Mapper::BuildKeyframe,
+    mapper.cpp:919-1007); depth is materialised immediately. ``jacT_pyr``
+    is feature-major [CS, h, w] per level."""
+    for l, lvl in enumerate(state.levels):
+        jac_hwc = jacT_pyr[l].permute(1, 2, 0)
+        dpt = ip.update_depth(code, prx0_pyr[l], jac_hwc, avg_dpt)
+        lvl.img[slot] = img_pyr[l]
+        lvl.grad[slot] = grad_pyr[l]
+        lvl.prx0[slot] = prx0_pyr[l]
+        lvl.jac[slot] = jacT_pyr[l]
+        lvl.stdev[slot] = stdev_pyr[l]
+        lvl.dpt[slot] = dpt
+        lvl.vld[slot] = 1.0
+    state.active[slot] = True
+    state.ids[slot] = state.next_id
+    state.pose.q[slot] = pose.q
+    state.pose.t[slot] = pose.t
+    state.code[slot] = code
+    state.next_id.add_(1)
+    return state
+
+
+def update_depth_all(state: MapState, avg_dpt: float) -> MapState:
+    """Re-materialise the depth pyramids of all keyframes from the current
+    codes, in place (UpdateMap writeback, mapper.cpp:859-899). The clamp
+    keeps depth finite on empty slots (prx0 = 0)."""
+    for lvl in state.levels:
+        prx = lvl.prx0 + torch.einsum("kchw,kc->khw", lvl.jac, state.code)
+        lvl.dpt.copy_(wp.prox_to_depth(torch.clamp(prx, min=1e-4), avg_dpt))
+    return state
+
+
+def poses_of(state: MapState, slots: Tensor) -> SE3:
+    return SE3(state.pose.q[slots], state.pose.t[slots])

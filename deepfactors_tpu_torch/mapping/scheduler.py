@@ -1,0 +1,221 @@
+"""Work scheduling for the Mapper (Python backend).
+
+Own copy of the reference-semantics scheduler of
+``deepfactors_tpu/mapping/scheduler.py`` and the Work classes of
+``deepfactors_tpu/mapping/mapper.py`` (df_work.cpp:99-249,
+work_manager.cpp:25-143), restricted to photometric works: reprojection and
+geometric works, and the native C++ backend, come with later slices.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+
+from .mapper_pools import _empty_pool
+
+
+class Work:
+    """Coarse-to-fine per-factor schedule state."""
+
+    def __init__(self, iters: Sequence[int], remove_after: bool = False):
+        self.iters = list(iters)
+        self.orig_iters = list(iters)
+        self.active_level = len(iters) - 1
+        self.first = True
+        self.remove = False
+        self.remove_after = remove_after
+        self.name = "work"
+        self.child: Optional["Work"] = None
+
+    def add_child(self, child: "Work"):
+        self.child = child
+
+    def is_new_level_start(self) -> bool:
+        return (self.active_level >= 0
+                and self.iters[self.active_level]
+                == self.orig_iters[self.active_level])
+
+    def update(self):
+        if self.active_level >= 0:
+            self.iters[self.active_level] -= 1
+            if self.iters[self.active_level] < 0:
+                self.active_level -= 1
+        if self.remove_after and self.active_level < 0:
+            self.remove = True
+
+    def finished(self) -> bool:
+        # <= not ==: an update tick and a convergence signal in the same
+        # scheduler update can skip a level past -1
+        if self.remove_after:
+            return self.active_level <= -2
+        return self.active_level <= -1
+
+    def signal_no_relinearize(self):
+        if not self.first and self.active_level >= 0:
+            self.active_level -= 1
+
+
+class PhotoWork(Work):
+    """OptimizePhoto: one directed photometric factor whose level follows the
+    work schedule (df_work.cpp:198-249)."""
+
+    def __init__(self, src: int, dst: int, dst_is_frame: bool,
+                 iters: Sequence[int], remove_after: bool = False):
+        super().__init__(iters, remove_after)
+        self.src = src
+        self.dst = dst
+        self.dst_is_frame = dst_is_frame
+        self.pool_slot: Optional[int] = None
+        self.name = f"photo {src}->{'f' if dst_is_frame else ''}{dst}"
+
+
+class WorkManager:
+    """Work list + bookkeeping (work_manager.cpp:25-143 semantics)."""
+
+    def __init__(self):
+        self.work: list[Work] = []
+
+    def add(self, w: Work) -> Work:
+        self.work.append(w)
+        return w
+
+    def empty(self) -> bool:
+        return len(self.work) == 0
+
+    def update(self):
+        for w in self.work:
+            w.update()
+
+    def signal_no_relinearize(self):
+        for w in self.work:
+            w.signal_no_relinearize()
+
+    def sweep_finished(self):
+        done = [w for w in self.work if w.finished()]
+        self.work = [w for w in self.work if not w.finished()]
+        for w in done:
+            if w.child is not None:
+                self.work.append(w.child)
+                w.child = None
+
+    def erase_involving(self, slot: int, is_frame: bool):
+        """WorkManager::Erase — drop works touching a removed frame/keyframe."""
+        def touches(w):
+            if not isinstance(w, PhotoWork):
+                return False
+            if is_frame:
+                return w.dst_is_frame and w.dst == slot
+            return w.src == slot or (not w.dst_is_frame and w.dst == slot)
+
+        self.work = [w for w in self.work if not touches(w)]
+
+
+class PyScheduler:
+    """Work list + photometric factor pool."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.wm = WorkManager()
+        self.photo_pool = _empty_pool(cfg.max_factors)
+
+    def add_photo(self, src, dst, dst_is_frame, iters, remove_after=False,
+                  replace=False):
+        if replace and not dst_is_frame:
+            for i in range(self.cfg.max_factors):
+                if (self.photo_pool.active[i]
+                        and not self.photo_pool.dst_is_frame[i]
+                        and self.photo_pool.src[i] == src
+                        and self.photo_pool.dst[i] == dst):
+                    self.photo_pool.active[i] = False
+            for w in list(self.wm.work):
+                if (isinstance(w, PhotoWork) and not w.dst_is_frame
+                        and w.src == src and w.dst == dst):
+                    self.wm.work.remove(w)
+        return self.wm.add(PhotoWork(src, dst, dst_is_frame, iters,
+                                     remove_after=remove_after))
+
+    def erase_frame(self, fslot: int):
+        for w in list(self.wm.work):
+            if isinstance(w, PhotoWork) and w.dst_is_frame and w.dst == fslot:
+                if w.pool_slot is not None:
+                    self.photo_pool.active[w.pool_slot] = False
+        self.wm.erase_involving(fslot, is_frame=True)
+        for i in range(self.cfg.max_factors):
+            if (self.photo_pool.active[i] and self.photo_pool.dst_is_frame[i]
+                    and self.photo_pool.dst[i] == fslot):
+                self.photo_pool.active[i] = False
+
+    def bookkeeping(self):
+        """Work::Bookkeeping (df_work.cpp:117-136): place new works and
+        level changes into the pool, free removed works."""
+        for w in self.wm.work:
+            if w.remove:
+                if w.pool_slot is not None:
+                    self.photo_pool.active[w.pool_slot] = False
+                    w.pool_slot = None
+                w.active_level = -2
+                continue
+            if w.first or (w.active_level >= 0 and w.is_new_level_start()):
+                w.first = False
+                if w.pool_slot is None:
+                    free = np.nonzero(~self.photo_pool.active)[0]
+                    if len(free) == 0:
+                        raise RuntimeError("photo factor pool exhausted")
+                    w.pool_slot = int(free[0])
+                i = w.pool_slot
+                self.photo_pool.src[i] = w.src
+                self.photo_pool.dst[i] = w.dst
+                self.photo_pool.dst_is_frame[i] = w.dst_is_frame
+                self.photo_pool.level[i] = max(w.active_level, 0)
+                self.photo_pool.active[i] = True
+
+    def budget(self) -> int:
+        budgets = [w.iters[w.active_level] + 1 for w in self.wm.work
+                   if w.active_level >= 0]
+        return max(1, min(budgets)) if budgets else 1
+
+    def update(self, iters_done: int, converged: bool):
+        for _ in range(iters_done):
+            self.wm.update()
+        if converged:
+            self.wm.signal_no_relinearize()
+        self.wm.sweep_finished()
+
+    def has_work(self) -> bool:
+        return not self.wm.empty()
+
+    def fused_sig(self):
+        """(active_level, iters, orig_iters) when every outstanding work
+        shares one schedule state (the whole C2F descent can then run as one
+        segment sequence), else None."""
+        sig = None
+        for w in self.wm.work:
+            if w.child is not None or w.remove or type(w) is not PhotoWork:
+                return None
+            s = (w.active_level, tuple(w.iters), tuple(w.orig_iters))
+            if sig is None:
+                sig = s
+            elif s != sig:
+                return None
+        return sig
+
+    def descent_slots(self) -> np.ndarray:
+        """Photo-pool slots owned by live works (the descending factor set)."""
+        out = np.zeros(self.cfg.max_factors, bool)
+        for w in self.wm.work:
+            if isinstance(w, PhotoWork) and w.pool_slot is not None:
+                out[w.pool_slot] = True
+        return out
+
+    def tick_empty(self):
+        self.wm.update()
+        self.wm.sweep_finished()
+
+
+def make_scheduler(cfg):
+    if getattr(cfg, "use_native_scheduler", False):
+        raise NotImplementedError(
+            "the native C++ scheduler backend comes with a later slice of "
+            "the port; use the Python scheduler")
+    return PyScheduler(cfg)

@@ -1,0 +1,258 @@
+"""Dense alignment operators: photometric SfM (pose0, pose1, code0) and
+SE(3) Lucas-Kanade tracking.
+
+PyTorch port of the XLA branches of ``deepfactors_tpu/ops/dense_sfm.py``
+(reference SfmAligner / SE3Aligner, sources/cuda/cu_sfmaligner.cpp:40-97,
+cu_se3aligner.cpp:77-113, per-pixel math dense_sfm.h:72-201 and
+lucas_kanade_se3.h:35-95). Jacobians are built feature-major ([D, N]) and
+reduced with one matmul.
+
+``se3_step`` is one factor of ``ops/kernels/sfm_gram.se3_gram_batch``: the
+tracking kernel on a CUDA tensor, its plain twin on the CPU.
+
+Pose convention (cu_sfmaligner.cpp:131-133): pose0/pose1 are camera-to-world
+keyframe poses; pose_10 = pose1^-1 * pose0 maps cam0 points into cam1.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..geometry import se3 as se3m
+from ..geometry import warping as wp
+from ..geometry.camera import PinholeCamera
+from ..geometry.m_estimators import huber_weight, tukey_sqrt_weight
+from ..geometry.se3 import SE3
+from .image import bilinear_sample, bilinear_sample_grad
+from .kernels import sfm_gram as sg
+
+Tensor = torch.Tensor
+
+
+def robust_weight(r, delta, loss: str = "huber"):
+    """Square-root IRLS weight by loss name: 'tukey' (redescending, finest
+    pyramid level) or 'huber'."""
+    if loss == "tukey":
+        return tukey_sqrt_weight(r, delta)
+    return huber_weight(r, delta)
+
+
+class SfmParams(NamedTuple):
+    """Mirror of DenseSfmParams (dense_sfm.h:36-43)."""
+
+    huber_delta: float = 0.1
+    avg_dpt: float = 2.0
+    min_dpt: float = 0.0
+    valid_border: int = 2
+
+
+class SystemResult(NamedTuple):
+    """Gauss-Newton system accumulated over pixels (JTJJrReductionItem,
+    sources/cuda/reduction_items.h:80-143), stored dense."""
+
+    JtJ: Tensor       # [..., D, D]
+    Jtr: Tensor       # [..., D]
+    residual: Tensor  # [...] sum of squared weighted residuals
+    inliers: Tensor   # [...] number of valid pixels
+
+
+class ErrorResult(NamedTuple):
+    residual: Tensor
+    inliers: Tensor
+
+
+def _pixel_grid(H: int, W: int, device) -> Tensor:
+    """[H, W, 2] grid of (x, y) pixel coordinates."""
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=device),
+                            torch.arange(W, dtype=torch.float32, device=device),
+                            indexing="ij")
+    return torch.stack([xs, ys], dim=-1)
+
+
+def _masked_system_T(JT: Tensor, r: Tensor, w: Tensor, valid: Tensor) -> SystemResult:
+    """Weighted masked GN system from FEATURE-MAJOR Jacobians JT [D, N]
+    (weight on both rows and residual, dense_sfm.h:189-199)."""
+    wv = torch.where(valid, w, torch.zeros_like(w))
+    Jw = JT * wv[None, :]
+    rw = r * wv
+    return SystemResult(Jw @ Jw.T, Jw @ rw, torch.sum(rw * rw),
+                        torch.sum(valid.to(torch.float32)))
+
+
+class DenseWarp(NamedTuple):
+    """Feature-major correspondence fields, each a flat [N] vector."""
+
+    u: Tensor
+    v: Tensor
+    tptx: Tensor
+    tpty: Tensor
+    tptz: Tensor
+    pix1x: Tensor
+    pix1y: Tensor
+    valid: Tensor
+
+
+def _dense_warp_fields(H, W, dpt, cam, pose_10, border, min_dpt) -> DenseWarp:
+    """FindCorrespondence over the full image (warping.h:204-241), unrolled."""
+    grid = _pixel_grid(H, W, dpt.device).reshape(-1, 2)
+    xs, ys = grid[:, 0], grid[:, 1]
+    u = (xs - cam.u0) / cam.fx
+    v = (ys - cam.v0) / cam.fy
+    ptx = u * dpt
+    pty = v * dpt
+    R = se3m.quat_to_matrix(pose_10.q)
+    t = pose_10.t
+    tptx = R[0, 0] * ptx + R[0, 1] * pty + R[0, 2] * dpt + t[0]
+    tpty = R[1, 0] * ptx + R[1, 1] * pty + R[1, 2] * dpt + t[1]
+    tptz = R[2, 0] * ptx + R[2, 1] * pty + R[2, 2] * dpt + t[2]
+    pix1x = cam.fx * tptx / tptz + cam.u0
+    pix1y = cam.fy * tpty / tptz + cam.v0
+    b = float(border)
+    valid = ((tptz > min_dpt) & (pix1x >= b) & (pix1x < cam.width - b)
+             & (pix1y >= b) & (pix1y < cam.height - b))
+    return DenseWarp(u, v, tptx, tpty, tptz, pix1x, pix1y, valid)
+
+
+def _unrolled_warp_jacobians(warp: DenseWarp, dpt, cam, pose_10, gx, gy,
+                             avg_dpt):
+    """Gradient-contracted warp Jacobians A [6, N] (w.r.t. pose_10) and the
+    prox chain err_J_prx [N] (dense_sfm.h:124-201), unrolled."""
+    x, y, z = warp.tptx, warp.tpty, warp.tptz
+    iz = 1.0 / z
+    d00 = cam.fx * iz
+    d02 = -cam.fx * x * iz * iz
+    d11 = cam.fy * iz
+    d12 = -cam.fy * y * iz * iz
+    gd0 = gx * d00
+    gd1 = gy * d11
+    gd2 = gx * d02 + gy * d12
+    t10 = pose_10.t
+    vx = x - t10[0]
+    vy = y - t10[1]
+    vz = z - t10[2]
+    A = torch.stack([gd0, gd1, gd2, -gd1 * vz + gd2 * vy,
+                     gd0 * vz - gd2 * vx, -gd0 * vy + gd1 * vx])
+    R = se3m.quat_to_matrix(pose_10.q)
+    u, v = warp.u, warp.v
+    m0 = R[0, 0] * u + R[0, 1] * v + R[0, 2]
+    m1 = R[1, 0] * u + R[1, 1] * v + R[1, 2]
+    m2 = R[2, 0] * u + R[2, 1] * v + R[2, 2]
+    pjd0 = d00 * m0 + d02 * m2
+    pjd1 = d11 * m1 + d12 * m2
+    dpt_J_prx = wp.depth_jacobian_prx(dpt, avg_dpt)
+    err_J_prx = -(gx * pjd0 + gy * pjd1) * dpt_J_prx
+    return A, err_J_prx
+
+
+def _sample_img_grad_xy(img1, grad1, x1, y1, grad_mode):
+    """Sample (img, gx, gy) at warped coords [N]: the exact gradient of the
+    bilinear interpolant ('interp') or the Sobel planes ('sampled')."""
+    pix1 = torch.stack([x1, y1], dim=-1)
+    if grad_mode == "interp":
+        return bilinear_sample_grad(img1, pix1)
+    return (bilinear_sample(img1, pix1), bilinear_sample(grad1[..., 0], pix1),
+            bilinear_sample(grad1[..., 1], pix1))
+
+
+def sfm_step(pose0: SE3, pose1: SE3, code0: Tensor, cam: PinholeCamera,
+             img0: Tensor, img1: Tensor, dpt0: Tensor, std0: Tensor,
+             prx_jac0: Tensor, grad1: Tensor, params: SfmParams,
+             grad_mode: str = "sampled", loss: str = "huber"):
+    """One SfM linearisation: (SystemResult [12+CS], valid0 [H, W]) with the
+    J-row layout [dErr/dpose0 | dErr/dpose1 | dErr/dcode0] (dense_sfm.h:
+    124-201). prx_jac0 is [H, W, CS]."""
+    H, W = img0.shape
+    CS = prx_jac0.shape[-1]
+    pose_10, j_pose1, j_pose0 = se3m.relative_pose_jacobians(pose1, pose0)
+    dpt = dpt0.reshape(-1)
+    warp = _dense_warp_fields(H, W, dpt, cam, pose_10, params.valid_border,
+                              params.min_dpt)
+    i1, gx, gy = _sample_img_grad_xy(img1, grad1, warp.pix1x, warp.pix1y,
+                                     grad_mode)
+    A, err_J_prx = _unrolled_warp_jacobians(warp, dpt, cam, pose_10, gx, gy,
+                                            params.avg_dpt)
+    Jp0T = -(j_pose0.T @ A)
+    Jp1T = -(j_pose1.T @ A)
+    JcT = err_J_prx[None, :] * prx_jac0.reshape(-1, CS).T
+    JT = torch.cat([Jp0T, Jp1T, JcT], dim=0)
+    r = img0.reshape(-1) - i1
+    w = robust_weight(r, params.huber_delta, loss)
+    sys = _masked_system_T(JT, r, w, warp.valid)
+    return sys, warp.valid.reshape(H, W).to(img0.dtype)
+
+
+def sfm_step_batch(poses0: SE3, poses1: SE3, codes0: Tensor,
+                   cam: PinholeCamera, img0s, img1s, dpt0s, std0s, jacs0,
+                   grad1s, params: SfmParams, grad_mode: str = "sampled",
+                   loss: str = "huber") -> SystemResult:
+    """Batched SfM linearisation over P factors ([P, ...] inputs, jacs0
+    [P, H, W, CS]); a loop over ``sfm_step``."""
+    out = [sfm_step(se3m.index(poses0, p), se3m.index(poses1, p), codes0[p],
+                    cam, img0s[p], img1s[p], dpt0s[p], std0s[p], jacs0[p],
+                    grad1s[p], params, grad_mode, loss)[0]
+           for p in range(img0s.shape[0])]
+    return SystemResult(*(torch.stack(x) for x in zip(*out)))
+
+
+def sfm_evaluate_error(pose0: SE3, pose1: SE3, cam: PinholeCamera,
+                       img0: Tensor, img1: Tensor, dpt0: Tensor, std0: Tensor,
+                       grad1: Tensor, params: SfmParams) -> ErrorResult:
+    """Residual + inlier evaluation only (dense_sfm.h:72-119), with the eval
+    kernel's border=1 / min_dpt=0."""
+    H, W = img0.shape
+    pose_10 = se3m.relative_pose(pose1, pose0)
+    pix0 = _pixel_grid(H, W, img0.device).reshape(-1, 2)
+    corresp = wp.find_correspondence(pix0, dpt0.reshape(-1), cam, pose_10,
+                                     border=1, min_dpt=0.0)
+    i1 = bilinear_sample(img1, corresp.pix1)
+    r = img0.reshape(-1) - i1
+    w = huber_weight(r, params.huber_delta)
+    rw = torch.where(corresp.valid, r * w, torch.zeros_like(r))
+    return ErrorResult(residual=torch.sum(rw * rw),
+                       inliers=torch.sum(corresp.valid.to(torch.float32)))
+
+
+def normalized_residual(residual: Tensor, inliers: Tensor, H: int, W: int):
+    """residual / inliers * W * H, inf on zero inliers
+    (photometric_factor.cpp:203-216)."""
+    return torch.where(inliers > 0,
+                       residual / torch.clamp(inliers, min=1.0) * (W * H),
+                       torch.full_like(residual, float("inf")))
+
+
+def se3_step(pose_10: SE3, cam: PinholeCamera, img0: Tensor, img1: Tensor,
+             dpt0: Tensor, grad1: Tensor, huber_delta: float,
+             grad_mode: str = "sampled") -> SystemResult:
+    """One tracking GN linearisation (lucas_kanade_se3.h:35-77). pose_10 maps
+    keyframe (cam0) points into the live frame (cam1)."""
+    kp = sg.make_sfm_params(SE3(pose_10.q[None], pose_10.t[None]), cam,
+                            1, 0.0, huber_delta, 2.0)
+    z = torch.zeros((1,), dtype=torch.int32, device=img0.device)
+    gxy = (None, None)
+    if grad_mode == "sampled":
+        gxy = (grad1[..., 0][None].contiguous(),
+               grad1[..., 1][None].contiguous())
+    G = sg.se3_gram_batch(kp, z, z, img0[None], dpt0[None], img1[None],
+                          *gxy, grad_mode=grad_mode)[0]
+    JtJ = 0.5 * (G[:6, :6] + G[:6, :6].T)
+    return SystemResult(JtJ=JtJ, Jtr=G[:6, 6], residual=G[6, 6],
+                        inliers=G[7, 7])
+
+
+def _cholesky_nan(A: Tensor) -> Tensor:
+    """Cholesky factor, NaN where a block is not positive definite (the JAX
+    semantics; ``torch.linalg.cholesky`` would raise and sync)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    bad = (info != 0).reshape(info.shape + (1, 1))
+    return torch.where(bad, torch.full_like(L, float("nan")), L)
+
+
+def se3_solve_and_update(JtJ: Tensor, Jtr: Tensor, pose: SE3,
+                         damping=0.0) -> SE3:
+    """Solve the 6x6 normal equations and retract with the decoupled update
+    (lucas_kanade_se3.h:84-95)."""
+    A = JtJ + damping * torch.eye(6, dtype=JtJ.dtype, device=JtJ.device)
+    L = _cholesky_nan(A)
+    update = -torch.cholesky_solve(Jtr[..., None], L)[..., 0]
+    return se3m.retract(pose, update)

@@ -1,0 +1,440 @@
+"""Fused dense-SfM linearisations: the counterpart of
+``deepfactors_tpu/ops/pallas/sfm_kernel.py``.
+
+Two functions carry the system's hot path, each with a hand-written CUDA
+kernel (``csrc/se3_gram.cu``, ``csrc/sfm_gram.cu``) and a plain PyTorch
+twin in this module:
+
+  - ``se3_gram_batch``: SE(3) tracking linearisation, G [P, 8, 8] with
+    rows ``[-w·A(6) | w·r | valid]`` (JtJ = G[:6,:6], Jtr = G[:6,6],
+    residual = G[6,6], inliers = G[7,7]).
+  - ``sfm_gram_batch``: photometric BA linearisation straight from the
+    keyframe pools, G [P, R, R], R = 6 + CS + 2, rows
+    ``[w·A(6) | w·err_J_prx·jac(CS) | w·r | valid]``.
+
+``system_from_gram`` (plain PyTorch, fp32) expands an SfM Gram stack into
+the reference's 44-dim [pose0 | pose1 | code0] factor systems.
+
+Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
+the plain twin. Nothing falls back from one to the other. Every kernel
+launch adds one to ``LAUNCHES[name]``.
+
+Semantics follow the TPU kernels except for their band-gather machinery
+(``_band_sample*`` and the ``cover`` mask, a workaround for Mosaic's in-tile
+gather): here every pixel samples the target image directly, so coverage is
+always complete — the same as the JAX package's XLA path.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...geometry import se3 as se3m
+from ...geometry.camera import PinholeCamera
+from ..image import bilinear_sample_grad
+from . import build
+
+Tensor = torch.Tensor
+
+# params vector layout (per factor)
+PARAM_DIM = 24
+_R0, _T0, _FX, _FY, _U0, _V0 = 0, 9, 12, 13, 14, 15
+_BORDER, _MINDPT, _HUBER, _AVGDPT = 16, 17, 18, 19
+
+MAX_CODE_SIZE = 64
+_GRAD_MODES = {"interp": 0, "sampled": 1}
+_LOSSES = {"huber": 0, "tukey": 1}
+
+# launch counters of the CUDA kernels (plain-twin calls never count)
+LAUNCHES = {"se3_gram_batch": 0, "sfm_gram_batch": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def make_sfm_params(pose_10: se3m.SE3, cam: PinholeCamera, border, min_dpt,
+                    huber_delta, avg_dpt) -> Tensor:
+    """Pack per-factor scalars: R(9) t(3) fx fy u0 v0 border min_dpt huber
+    avg_dpt, padded to PARAM_DIM. pose_10 is batched [P]."""
+    R = se3m.quat_to_matrix(pose_10.q)
+    P = R.shape[0]
+    const = torch.tensor(
+        [cam.fx, cam.fy, cam.u0, cam.v0, float(border), float(min_dpt),
+         float(huber_delta), float(avg_dpt)],
+        dtype=torch.float32, device=R.device).expand(P, 8)
+    pad = torch.zeros((P, PARAM_DIM - 20), dtype=torch.float32,
+                      device=R.device)
+    return torch.cat([R.reshape(P, 9), pose_10.t, const, pad], dim=-1)
+
+
+# ----------------------------------------------------------------------------
+# plain PyTorch twins
+# ----------------------------------------------------------------------------
+
+def _param_col(params: Tensor, k: int) -> Tensor:
+    return params[:, k:k + 1]
+
+
+def _warp_rows(params, dpt, img0, img1, gx1, gy1, grad_mode, loss):
+    """Per-pixel warp math of the kernels, batched over factors.
+
+    dpt/img0/img1(/gx1/gy1) are per-factor planes [P, H, W]. Returns
+    (A [6 x [P, N]], err_J_prx [P, N], r [P, N], wv [P, N], valid [P, N]),
+    in the op order of csrc/sfm_common.cuh."""
+    P, H, W = dpt.shape
+    dev = dpt.device
+    xs = torch.arange(W, dtype=torch.float32, device=dev).repeat(H)
+    ys = torch.arange(H, dtype=torch.float32, device=dev).repeat_interleave(W)
+    c = lambda k: _param_col(params, k)
+    R = [c(_R0 + k) for k in range(9)]
+    tx, ty, tz = c(_T0), c(_T0 + 1), c(_T0 + 2)
+    fx, fy, u0, v0 = c(_FX), c(_FY), c(_U0), c(_V0)
+    border, min_dpt, huber, avg = c(_BORDER), c(_MINDPT), c(_HUBER), c(_AVGDPT)
+
+    d = dpt.reshape(P, -1)
+    u = (xs - u0) / fx
+    v = (ys - v0) / fy
+    ptx = u * d
+    pty = v * d
+    tptx = R[0] * ptx + R[1] * pty + R[2] * d + tx
+    tpty = R[3] * ptx + R[4] * pty + R[5] * d + ty
+    tptz = R[6] * ptx + R[7] * pty + R[8] * d + tz
+    zsafe = torch.where(tptz.abs() > 1e-12, tptz, torch.full_like(tptz, 1e-12))
+    x1 = fx * tptx / zsafe + u0
+    y1 = fy * tpty / zsafe + v0
+    valid = ((tptz > min_dpt) & (x1 >= border) & (x1 < W - border)
+             & (y1 >= border) & (y1 < H - border))
+    x1 = torch.where(valid, x1, xs)
+    y1 = torch.where(valid, y1, ys)
+    iz = torch.where(valid, 1.0 / zsafe, torch.zeros_like(zsafe))
+
+    pix = torch.stack([x1, y1], dim=-1)
+    if grad_mode == "interp":
+        i1, gx, gy = bilinear_sample_grad(img1, pix)
+    elif grad_mode == "sampled":
+        i1 = bilinear_sample_grad(img1, pix)[0]
+        gx = bilinear_sample_grad(gx1, pix)[0]
+        gy = bilinear_sample_grad(gy1, pix)[0]
+    else:
+        raise ValueError(f"unknown grad_mode {grad_mode!r}")
+
+    d00 = fx * iz
+    d02 = -fx * tptx * iz * iz
+    d11 = fy * iz
+    d12 = -fy * tpty * iz * iz
+    gd0 = gx * d00
+    gd1 = gy * d11
+    gd2 = gx * d02 + gy * d12
+    vx = tptx - tx
+    vy = tpty - ty
+    vz = tptz - tz
+    A = [gd0, gd1, gd2, -gd1 * vz + gd2 * vy, gd0 * vz - gd2 * vx,
+         -gd0 * vy + gd1 * vx]
+
+    m0 = R[0] * u + R[1] * v + R[2]
+    m1 = R[3] * u + R[4] * v + R[5]
+    m2 = R[6] * u + R[7] * v + R[8]
+    pjd0 = d00 * m0 + d02 * m2
+    pjd1 = d11 * m1 + d12 * m2
+    ad = avg + d
+    dpt_J_prx = -(ad * ad) / avg
+    err_J_prx = -(gx * pjd0 + gy * pjd1) * dpt_J_prx
+
+    r = img0.reshape(P, -1) - i1
+    if loss == "tukey":
+        a = r / huber
+        w = torch.clamp(1.0 - a * a, min=0.0)
+    elif loss == "huber":
+        aa = r.abs()
+        hub = torch.sqrt(huber * (2.0 * aa - huber)) / torch.clamp(aa, min=1e-12)
+        w = torch.where(aa <= huber, torch.ones_like(hub), hub)
+    else:
+        raise ValueError(f"unknown loss {loss!r}")
+    wv = torch.where(valid, w, torch.zeros_like(w))
+    return A, err_J_prx, r, wv, valid
+
+
+def _gram(rows, active):
+    B = torch.stack(rows, dim=1)                     # [P, R, N]
+    G = torch.matmul(B, B.transpose(1, 2))
+    return torch.where(active[:, None, None] != 0, G, torch.zeros_like(G))
+
+
+def _clamped(idx: Tensor, n: int) -> Tensor:
+    return torch.clamp(idx.long(), 0, n - 1)
+
+
+def _default_active(active, P, device):
+    if active is None:
+        return torch.ones(P, dtype=torch.int32, device=device)
+    return active.to(torch.int32)
+
+
+def se3_gram_batch_plain(params, src, dst, img0_pool, dpt_pool, img1_pool,
+                         gx1_pool=None, gy1_pool=None, active=None,
+                         grad_mode="sampled") -> Tensor:
+    """Plain PyTorch version of ``se3_gram_batch`` (same arguments)."""
+    K, K1 = img0_pool.shape[0], img1_pool.shape[0]
+    s, d = _clamped(src, K), _clamped(dst, K1)
+    active = _default_active(active, src.shape[0], img0_pool.device)
+    sampled = grad_mode == "sampled"
+    A, _, r, wv, valid = _warp_rows(
+        params, dpt_pool[s], img0_pool[s], img1_pool[d],
+        gx1_pool[d] if sampled else None, gy1_pool[d] if sampled else None,
+        grad_mode, "huber")
+    rows = [-wv * a for a in A] + [wv * r, valid.to(torch.float32)]
+    return _gram(rows, active)
+
+
+def sfm_gram_batch_plain(params, src, dst, img0_pool, dpt_pool, jacT_pool,
+                         img1_pool, gx1_pool=None, gy1_pool=None, active=None,
+                         codes=None, grad_mode="sampled",
+                         loss="huber") -> Tensor:
+    """Plain PyTorch version of ``sfm_gram_batch`` (same arguments)."""
+    K, K1 = img0_pool.shape[0], img1_pool.shape[0]
+    CS = jacT_pool.shape[1]
+    s, d = _clamped(src, K), _clamped(dst, K1)
+    active = _default_active(active, src.shape[0], img0_pool.device)
+    jac = jacT_pool[s]                                    # [P, CS, H, W]
+    if codes is not None:
+        prx = dpt_pool[s]
+        for c in range(CS):
+            prx = prx + codes[:, c, None, None] * jac[:, c]
+        prx = torch.clamp(prx, min=1e-4)
+        avg = params[:, _AVGDPT, None, None]
+        dpt = avg / prx - avg
+    else:
+        dpt = dpt_pool[s]
+    sampled = grad_mode == "sampled"
+    A, err_J_prx, r, wv, valid = _warp_rows(
+        params, dpt, img0_pool[s], img1_pool[d],
+        gx1_pool[d] if sampled else None, gy1_pool[d] if sampled else None,
+        grad_mode, loss)
+    sc = wv * err_J_prx
+    P = src.shape[0]
+    rows = ([wv * a for a in A]
+            + list((sc[:, None, :] * jac.reshape(P, CS, -1)).unbind(1))
+            + [wv * r, valid.to(torch.float32)])
+    return _gram(rows, active)
+
+
+# ----------------------------------------------------------------------------
+# CUDA kernels
+# ----------------------------------------------------------------------------
+
+def _ptr(t: Tensor):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def _check(t: Tensor, name: str, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(code: int, lib, fn_name: str):
+    if code != 0:
+        msg = getattr(lib, fn_name)(code).decode()
+        raise RuntimeError(f"CUDA kernel launch failed: {msg} ({code})")
+
+
+def _strips(N: int, max_strips: int, min_px: int):
+    """(pixels per block, blocks) for a strip split of N pixels; strips are
+    whole 256-pixel tiles."""
+    per = max(min_px, -(-N // max_strips))
+    per = -(-per // 256) * 256
+    return per, -(-N // per)
+
+
+_SIGS = {}
+
+
+def _lib(source: str, fn: str, err_fn: str, nargs_ptr: int, nargs_int: int):
+    lib = build.library(source)
+    if (source, fn) not in _SIGS:
+        f = getattr(lib, fn)
+        f.argtypes = ([ctypes.c_void_p] * nargs_ptr + [ctypes.c_int] * nargs_int
+                      + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+        getattr(lib, err_fn).restype = ctypes.c_char_p
+        getattr(lib, err_fn).argtypes = [ctypes.c_int]
+        _SIGS[(source, fn)] = True
+    return lib
+
+
+def _se3_gram_cuda(params, src, dst, img0_pool, dpt_pool, img1_pool,
+                   gx1_pool, gy1_pool, active, grad_mode):
+    dev = img0_pool.device
+    P = src.shape[0]
+    K, H, W = img0_pool.shape
+    K1 = img1_pool.shape[0]
+    if grad_mode not in _GRAD_MODES:
+        raise ValueError(f"unknown grad_mode {grad_mode!r}")
+    active = _default_active(active, P, dev)
+    f32, i32 = torch.float32, torch.int32
+    _check(params, "params", f32, (P, PARAM_DIM), dev)
+    _check(src, "src", i32, (P,), dev)
+    _check(dst, "dst", i32, (P,), dev)
+    _check(active, "active", i32, (P,), dev)
+    _check(img0_pool, "img0_pool", f32, (K, H, W), dev)
+    _check(dpt_pool, "dpt_pool", f32, (K, H, W), dev)
+    _check(img1_pool, "img1_pool", f32, (K1, H, W), dev)
+    if grad_mode == "sampled":
+        _check(gx1_pool, "gx1_pool", f32, (K1, H, W), dev)
+        _check(gy1_pool, "gy1_pool", f32, (K1, H, W), dev)
+    else:
+        gx1_pool = gy1_pool = None
+    per, nblk = _strips(H * W, 16, 1024)
+    part = torch.empty((P, nblk, 36), dtype=f32, device=dev)
+    G = torch.empty((P, 8, 8), dtype=f32, device=dev)
+    lib = _lib("se3_gram.cu", "se3_gram_launch", "se3_gram_error_string",
+               11, 8)
+    code = lib.se3_gram_launch(
+        _ptr(params), _ptr(src), _ptr(dst), _ptr(active), _ptr(img0_pool),
+        _ptr(dpt_pool), _ptr(img1_pool), _ptr(gx1_pool), _ptr(gy1_pool),
+        _ptr(part), _ptr(G), P, K, K1, H, W, per, nblk,
+        _GRAD_MODES[grad_mode],
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(code, lib, "se3_gram_error_string")
+    LAUNCHES["se3_gram_batch"] += 1
+    return G
+
+
+def _sfm_gram_cuda(params, src, dst, img0_pool, dpt_pool, jacT_pool,
+                   img1_pool, gx1_pool, gy1_pool, active, codes, grad_mode,
+                   loss):
+    dev = img0_pool.device
+    P = src.shape[0]
+    K, H, W = img0_pool.shape
+    K1 = img1_pool.shape[0]
+    CS = jacT_pool.shape[1]
+    if CS > MAX_CODE_SIZE:
+        raise ValueError(f"code size {CS} > {MAX_CODE_SIZE} is not supported")
+    if grad_mode not in _GRAD_MODES:
+        raise ValueError(f"unknown grad_mode {grad_mode!r}")
+    if loss not in _LOSSES:
+        raise ValueError(f"unknown loss {loss!r}")
+    active = _default_active(active, P, dev)
+    f32, i32 = torch.float32, torch.int32
+    _check(params, "params", f32, (P, PARAM_DIM), dev)
+    _check(src, "src", i32, (P,), dev)
+    _check(dst, "dst", i32, (P,), dev)
+    _check(active, "active", i32, (P,), dev)
+    _check(img0_pool, "img0_pool", f32, (K, H, W), dev)
+    _check(dpt_pool, "dpt_pool", f32, (K, H, W), dev)
+    _check(jacT_pool, "jacT_pool", f32, (K, CS, H, W), dev)
+    _check(img1_pool, "img1_pool", f32, (K1, H, W), dev)
+    if grad_mode == "sampled":
+        _check(gx1_pool, "gx1_pool", f32, (K1, H, W), dev)
+        _check(gy1_pool, "gy1_pool", f32, (K1, H, W), dev)
+    else:
+        gx1_pool = gy1_pool = None
+    if codes is not None:
+        _check(codes, "codes", f32, (P, CS), dev)
+    R = CS + 8
+    per, nblk = _strips(H * W, 12, 1024)
+    part = torch.empty((P, nblk, R * (R + 1) // 2), dtype=f32, device=dev)
+    G = torch.empty((P, R, R), dtype=f32, device=dev)
+    lib = _lib("sfm_gram.cu", "sfm_gram_launch", "sfm_gram_error_string",
+               13, 11)
+    code = lib.sfm_gram_launch(
+        _ptr(params), _ptr(src), _ptr(dst), _ptr(active), _ptr(codes),
+        _ptr(img0_pool), _ptr(dpt_pool), _ptr(jacT_pool), _ptr(img1_pool),
+        _ptr(gx1_pool), _ptr(gy1_pool), _ptr(part), _ptr(G),
+        P, K, K1, CS, H, W, per, nblk, _GRAD_MODES[grad_mode], _LOSSES[loss],
+        int(codes is not None),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(code, lib, "sfm_gram_error_string")
+    LAUNCHES["sfm_gram_batch"] += 1
+    return G
+
+
+# ----------------------------------------------------------------------------
+# public entry points
+# ----------------------------------------------------------------------------
+
+def _route(t: Tensor) -> str:
+    if t.device.type == "cuda":
+        return "cuda"
+    if t.device.type == "cpu":
+        return "plain"
+    raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+def se3_gram_batch(params, src, dst, img0_pool, dpt_pool, img1_pool,
+                   gx1_pool=None, gy1_pool=None, active=None,
+                   grad_mode="sampled") -> Tensor:
+    """Fused SE(3) tracking linearisation: G [P, 8, 8].
+
+    params [P, PARAM_DIM] (make_sfm_params), src/dst [P] int32 slots into
+    the keyframe pools img0/dpt [K, H, W] and the live pools
+    img1(/gx1/gy1) [K1, H, W]; active [P] (0 = G is zero)."""
+    if _route(img0_pool) == "cuda":
+        return _se3_gram_cuda(params, src, dst, img0_pool, dpt_pool,
+                              img1_pool, gx1_pool, gy1_pool, active, grad_mode)
+    return se3_gram_batch_plain(params, src, dst, img0_pool, dpt_pool,
+                                img1_pool, gx1_pool, gy1_pool, active,
+                                grad_mode)
+
+
+def sfm_gram_batch(params, src, dst, img0_pool, dpt_pool, jacT_pool,
+                   img1_pool, gx1_pool=None, gy1_pool=None, active=None,
+                   codes=None, grad_mode="sampled", loss="huber") -> Tensor:
+    """Fused SfM linearisation: G [P, R, R], R = 6 + CS + 2.
+
+    jacT_pool [K, CS, H, W] is the feature-major code Jacobian. With
+    ``codes`` [P, CS] given, dpt_pool holds the zero-code proximity prx0
+    and depth is materialised per factor at its code."""
+    if _route(img0_pool) == "cuda":
+        return _sfm_gram_cuda(params, src, dst, img0_pool, dpt_pool, jacT_pool,
+                              img1_pool, gx1_pool, gy1_pool, active, codes,
+                              grad_mode, loss)
+    return sfm_gram_batch_plain(params, src, dst, img0_pool, dpt_pool,
+                                jacT_pool, img1_pool, gx1_pool, gy1_pool,
+                                active, codes, grad_mode, loss)
+
+
+def system_from_gram(G: Tensor, j_pose0: Tensor, j_pose1: Tensor, CS: int):
+    """Expand Gram stacks into reference-layout GN systems.
+
+    G [P, R, R] with R = 6+CS+2. Returns (JtJ [P, 12+CS, 12+CS],
+    Jtr [P, 12+CS], residual [P], inliers [P]) in the reference row layout
+    [dErr/dpose0 | dErr/dpose1 | dErr/dcode0] (photometric_factor.cpp:
+    135-161) via J = M·B with M = [[-j_pose0ᵀ·sel_A], [-j_pose1ᵀ·sel_A],
+    [sel_code]]. Plain fp32 matmuls; the pose blocks are symmetrised
+    explicitly so the downstream Cholesky sees exactly symmetric systems."""
+    DB = 6 + CS
+    g = G[:, :DB, DB]
+    residual = G[:, DB, DB]
+    inliers = G[:, DB + 1, DB + 1]
+    sym = lambda X: 0.5 * (X + X.transpose(-1, -2))
+    T0 = j_pose0.transpose(-1, -2)
+    T1 = j_pose1.transpose(-1, -2)
+    GA = sym(G[:, :6, :6])
+    GAc = G[:, :6, 6:DB]
+    Gcc = sym(G[:, 6:DB, 6:DB])
+    gA = g[:, :6, None]
+    gc = g[:, 6:]
+    T0GA = T0 @ GA
+    T1GA = T1 @ GA
+    B00 = sym(T0GA @ T0.transpose(-1, -2))
+    B01 = T0GA @ T1.transpose(-1, -2)
+    B11 = sym(T1GA @ T1.transpose(-1, -2))
+    B0c = -(T0 @ GAc)
+    B1c = -(T1 @ GAc)
+    t = lambda X: X.transpose(-1, -2)
+    JtJ = torch.cat([
+        torch.cat([B00, B01, B0c], dim=-1),
+        torch.cat([t(B01), B11, B1c], dim=-1),
+        torch.cat([t(B0c), t(B1c), Gcc], dim=-1),
+    ], dim=-2)
+    Jtr = torch.cat([-(T0 @ gA)[..., 0], -(T1 @ gA)[..., 0], gc], dim=-1)
+    return JtJ, Jtr, residual, inliers
