@@ -7,12 +7,18 @@ Phases, in order (any failure exits non-zero before the final line):
      path's shapes (192x256, 96x128, 48x64 levels, K = 32 keyframe pools):
      sfm_gram_batch at P = 128 with half the slots inactive, CS 32 and 8,
      Huber/Tukey, from-prox on/off, interp/sampled; se3_gram_batch at
-     P = 1 and 8. Times kernel and twin at each level with CUDA events.
+     P = 1 and 8; sfm_error_batch and se3_warp_batch at P = 1, 2 and 64
+     (half the slots inactive). Times kernel and twin with CUDA events.
   3. the room256_32v4 decoder forward at 192x256 on the card, held against
      the same module on the CPU.
   4. end to end: the sequential DeepFactors facade on 60 frames of the
      synthetic room orbit (tools/bench_e2e.py's configuration without loop
-     closure and reprojection factors), bootstrap on frames 0 and 2.
+     closure and reprojection factors) in a window of 32 keyframes,
+     bootstrap on frames 0 and 2.
+  5. the long run: the same facade and orbit with the package's default
+     window (max_keyframes=16, max_factors=64), 180 frames, so the run
+     outlives its window and evicts; then the map dump with per-factor
+     errors (sfm_error_batch) and one warp render (se3_warp_batch).
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -46,6 +52,28 @@ POSE_NOISE = (0.02, 0.005)   # translation (m), rotation (rad) per axis
 # configuration, 0.0684 m (port_tools/jax_smoke_reference.py), and the
 # port's card runs of this script, 0.0662-0.0673 m.
 ATE_BOUND_M = 0.085
+# The long run (phase 5) runs the same orbit in random_room(5), the room
+# in which both packages carry 180 frames in a window of 16 along the same
+# path: the JAX facade on the CPU tracks every frame up to 194 and reads, at
+# 180, 17 evictions and a rigid ATE of 0.2610 m
+# (port_tools/jax_smoke_reference.py --frames 200 --max-keyframes 16
+# --max-factors 64 --scene-seed 5); the port on the card reads 17 evictions
+# and 0.2602 m (port_tools/facade_run.py, same arguments, 180 frames). The
+# bound sits just above both, as ATE_BOUND_M does. Room 7 cannot carry it
+# (the JAX facade loses tracking at frame 126, and at 146 in a window of
+# 32, before any eviction), and in room 11 one one-way-frame decision at
+# frame 51 falls on its threshold and the two packages part there
+# (PERF.md section 6).
+LONG_SCENE_SEED = 5
+LONG_FRAMES = 180
+LONG_WINDOW = 16
+LONG_ATE_BOUND_M = 0.32
+# sfm_error_batch / se3_warp_batch vs their twins: inlier counts equal, the
+# residual within ERR_RES_TOL of itself (a sum of non-negative terms in
+# another order), the render within WARP_ATOL absolute (the same fp32
+# expression per pixel), inactive outputs exactly 0.
+ERR_RES_TOL = 1e-4
+WARP_ATOL = 1e-5
 # decoder card vs CPU: bf16 activations round differently in cuDNN and in
 # the CPU convolution; 2e-2 of the largest |value| per output.
 DECODER_TOL = 2e-2
@@ -313,6 +341,135 @@ def phase_kernels(dev):
         w = worst[name]
         r["max_abs_err"] = w["abs"]
         r["max_rel_err"] = {k: w[k] for k in ("jtj", "jtr", "res", "g")}
+    out.update(phase_error_kernels(dev, K, cams, levels, q, t))
+    return out
+
+
+def phase_error_kernels(dev, K, cams, levels, q, t):
+    """sfm_error_batch and se3_warp_batch against their twins at the three
+    pyramid sizes, P = 1, 2 and a pool-sized batch with inactive slots, at
+    perturbed poses; then their times at the shapes the main path gives
+    them: the keyframe gate (P = 2: two depth hypotheses of one image
+    against one reference), the map dump (P = 64) and one warp render."""
+    import torch
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+    from deepfactors_tpu_torch.ops.kernels import sfm_error as se
+    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
+
+    worst = {n: dict(res=0.0, abs=0.0) for n in se.LAUNCHES}
+    n_checks = 0
+    timed = {n: [] for n in se.LAUNCHES}
+
+    def bound_of(args, active, writes_plane):
+        """Least bytes: every distinct source plane pair (img0, dpt) and
+        target plane of an active factor read once, the params rows, the
+        outputs written once; ~50 flops per pixel of an active factor."""
+        kp, src, dst, img0 = args[:4]
+        N = img0.shape[1] * img0.shape[2]
+        on = active.bool()
+        P, n_on = src.shape[0], int(on.sum())
+        planes = (2 * len(set(src[on].tolist())) + len(set(dst[on].tolist()))
+                  + (P if writes_plane else 0))
+        nbytes = planes * N * 4 + P * (sg.PARAM_DIM + 3 + 2) * 4
+        return bound(nbytes, n_on * N * 50)
+
+    for P in (1, 2, 64):
+        src, dst, active = factor_set(K, P, dev, seed=10 + P)
+        if P <= 2:
+            active = torch.ones(P, dtype=torch.int32, device=dev)
+        sl, dl = src.long(), dst.long()
+        pose_10 = perturb(se3m.relative_pose(SE3(q[dl], t[dl]),
+                                             SE3(q[sl], t[sl])), seed=20 + P)
+        off = active == 0
+        for l, lv in enumerate(levels):
+            kp = sg.make_sfm_params(pose_10, cams[l], 1, 0.0, 0.3, 2.0)
+            args = (kp, src, dst, lv["img"], lv["dpt"], lv["img"])
+            hw = "x".join(map(str, lv["img"].shape[1:]))
+            rk, ik = se.sfm_error_batch(*args, active=active)
+            rp, ip_ = se.sfm_error_batch_plain(*args, active=active)
+            wk, rwk, iwk = se.se3_warp_batch(*args, active=active)
+            wp_, rwp, iwp = se.se3_warp_batch_plain(*args, active=active)
+            torch.cuda.synchronize()
+            for name, (a_res, a_inl, b_res, b_inl) in (
+                    ("sfm_error_batch", (rk, ik, rp, ip_)),
+                    ("se3_warp_batch", (rwk, iwk, rwp, iwp))):
+                assert torch.isfinite(a_res).all(), name
+                assert torch.equal(a_inl, b_inl), f"{name}: inliers differ"
+                seen = b_inl > 0
+                assert bool(seen[~off].float().mean() >= 0.5), \
+                    f"{name}: most active factors saw nothing"
+                assert bool((b_res[seen] > 0).all()), f"{name}: zero residual"
+                assert bool((a_res[off] == 0).all() and (a_inl[off] == 0).all()), \
+                    f"{name}: an inactive factor is not zero"
+                rel = float(((a_res - b_res).abs()
+                             / b_res.abs().clamp(min=1e-12))[seen].max())
+                assert rel < ERR_RES_TOL, f"{name}: residual rel err {rel}"
+                worst[name]["res"] = max(worst[name]["res"], rel)
+            d = float((wk - wp_).abs().max())
+            assert d < WARP_ATOL, f"se3_warp_batch: warped differs by {d}"
+            assert bool((wk[off] == 0).all()), "inactive render is not zero"
+            worst["se3_warp_batch"]["abs"] = max(worst["se3_warp_batch"]["abs"], d)
+            worst["sfm_error_batch"]["abs"] = max(
+                worst["sfm_error_batch"]["abs"], float((rk - rp).abs().max()))
+            n_checks += 1
+            if P == 64:      # the map dump: one call per level over the pool
+                bms, by = bound_of(args, active, False)
+                timed["sfm_error_batch"].append(dict(
+                    ms=cuda_ms(lambda: se.sfm_error_batch(*args, active=active)),
+                    plain_ms=cuda_ms(lambda: se.sfm_error_batch_plain(
+                        *args, active=active), iters=5),
+                    bound_ms=bms, bound_by=by,
+                    shape=f"dump P={P} ({int(active.sum())} active) {hw}"))
+            if P == 1:       # one warp render
+                bms, by = bound_of(args, active, True)
+                timed["se3_warp_batch"].append(dict(
+                    ms=cuda_ms(lambda: se.se3_warp_batch(*args, active=active),
+                               iters=100),
+                    plain_ms=cuda_ms(lambda: se.se3_warp_batch_plain(
+                        *args, active=active)),
+                    bound_ms=bms, bound_by=by, shape=f"P=1 {hw}"))
+
+    # the keyframe gate's shape: both depth hypotheses of the new keyframe
+    # against the newest keyframe, level 0
+    lv = levels[0]
+    two = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    zero2 = torch.zeros(2, dtype=torch.int32, device=dev)
+    pose_10 = perturb(se3m.relative_pose(SE3(q[1:2], t[1:2]),
+                                         SE3(q[0:1], t[0:1])), seed=31)
+    kp = sg.make_sfm_params(SE3(pose_10.q.expand(2, 4), pose_10.t.expand(2, 3)),
+                            cams[0], 1, 0.0, 0.3, 2.0)
+    gate = (kp, two, zero2, lv["img"][0].expand(2, -1, -1).contiguous(),
+            torch.stack([lv["dpt"][0], 1.05 * lv["dpt"][0]]),
+            lv["img"][1:2].contiguous())
+    rk, ik = se.sfm_error_batch(*gate)
+    rp, ip_ = se.sfm_error_batch_plain(*gate)
+    torch.cuda.synchronize()
+    assert torch.equal(ik, ip_) and bool((ik > 0).all())
+    rel = float(((rk - rp).abs() / rp.abs()).max())
+    assert rel < ERR_RES_TOL, f"sfm_error_batch (gate): residual rel err {rel}"
+    worst["sfm_error_batch"]["res"] = max(worst["sfm_error_batch"]["res"], rel)
+    n_checks += 1
+    bms, by = bound_of(gate, torch.ones(2, dtype=torch.int32, device=dev), False)
+    timed["sfm_error_batch"].insert(0, dict(
+        ms=cuda_ms(lambda: se.sfm_error_batch(*gate), iters=100),
+        plain_ms=cuda_ms(lambda: se.sfm_error_batch_plain(*gate)),
+        bound_ms=bms, bound_by=by,
+        shape="gate P=2 " + "x".join(map(str, lv["img"].shape[1:]))))
+
+    out = {}
+    for name, rows in timed.items():
+        w = worst[name]
+        log(f"{name}: {n_checks} checks, inlier counts equal, inactive "
+            f"outputs zero, max rel err residual {w['res']:.3e} (tol "
+            f"{ERR_RES_TOL})" + (f", max abs err render {w['abs']:.3e} (tol "
+                                 f"{WARP_ATOL})" if name == "se3_warp_batch" else ""))
+        for r in rows:
+            log(f"{name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']})")
+        out[name] = dict(rows[0], max_abs_err=w["abs"],
+                         max_rel_err={"res": w["res"]})
     return out
 
 
@@ -349,34 +506,81 @@ def phase_decoder(dev):
 
 
 # ----------------------------------------------------------------------------
-# phase 4: end to end
+# phases 4 and 5: end to end
 # ----------------------------------------------------------------------------
 
-def phase_e2e(dev, decoder):
+def launch_counts():
+    from deepfactors_tpu_torch.ops.kernels import sfm_error as se
+    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
+    return {**sg.LAUNCHES, **se.LAUNCHES}
+
+
+def reset_launch_counts():
+    from deepfactors_tpu_torch.ops.kernels import sfm_error as se
+    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
+    sg.reset_launch_counts()
+    se.reset_launch_counts()
+
+
+def stat(v):
+    return (f"n={len(v)} mean {np.mean(v):.1f} median {np.median(v):.1f} "
+            f"max {np.max(v):.1f} ms" if v else "n=0")
+
+
+def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
+               max_factors, frame_dist_threshold=0.12):
+    """The sequential facade over the first ``n_frames`` of the room orbit,
+    bootstrap on frames 0 and 2. Sets the launch counts to 0 first. Returns
+    the facade, the scene's camera and frames, and the run's readings."""
     import torch
     from deepfactors_tpu_torch.geometry.camera import PinholeCamera
     from deepfactors_tpu_torch.io import synth
     from deepfactors_tpu_torch.mapping.mapper import MapperConfig
-    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
     from deepfactors_tpu_torch.system import DeepFactors, SystemConfig
     from deepfactors_tpu_torch.utils import tum_io
 
     cam = PinholeCamera.create(fx=220.0, fy=220.0, u0=W / 2, v0=H / 2,
                                width=W, height=H)
-    scene = synth.random_room(7, n_boxes=3)
-    poses = synth.orbit_trajectory(SEQ_LEN, sweep=3.2 * np.pi)[:N_FRAMES]
+    scene = synth.random_room(scene_seed, n_boxes=3)
+    poses = synth.orbit_trajectory(SEQ_LEN, sweep=3.2 * np.pi)[:n_frames]
     frames = synth.render_sequence(scene, cam, poses, H, W, device=dev)
     cfg = SystemConfig(
         mapper=MapperConfig(
-            max_keyframes=32, max_frames=2, max_factors=128, code_size=32,
+            max_keyframes=max_keyframes, max_frames=2,
+            max_factors=max_factors, code_size=32,
             height=H, width=W, pyramid_levels=3, pho_iters=(4, 8, 15),
             connection_mode="LASTN", max_back_connections=2,
             use_reprojection=False),
         dist_threshold=2.0, tracking_dist_threshold=5.0,
-        frame_dist_threshold=0.12, loop_closure=False)
+        frame_dist_threshold=frame_dist_threshold, loop_closure=False)
     df = DeepFactors(cfg, cam, decoder=decoder, device=dev)
 
-    sg.reset_launch_counts()
+    # evictions: the victims the callback saw, and the host milliseconds of
+    # each eviction and of its device part (each ending in a synchronise)
+    evicted, evict_ms, eliminate_ms = [], [], []
+    on_evict = df.mapper.evict_callback
+
+    def record(slot, kid):
+        evicted.append(kid)
+        on_evict(slot, kid)
+
+    df.mapper.evict_callback = record
+
+    def timed(fn, sink):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapper
+
+    df.mapper.marginalize_keyframe = timed(df.mapper.marginalize_keyframe,
+                                           evict_ms)
+    df.mapper._eliminate = timed(df.mapper._eliminate, eliminate_ms)
+
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     df.bootstrap_two_frames(frames[0], frames[2], frame_gap=2)
@@ -387,26 +591,31 @@ def phase_e2e(dev, decoder):
     # launches the kind made in all
     ms_by = {"tracking-only frames": [], "one-way-frame events": [],
              "keyframe events": []}
-    launches_by = {k: dict.fromkeys(sg.LAUNCHES, 0) for k in ms_by}
-    launches_by["bootstrap"] = dict(sg.LAUNCHES)
+    launches_by = {k: dict.fromkeys(launch_counts(), 0) for k in ms_by}
+    launches_by["bootstrap"] = launch_counts()
     n_frames_enq = int(df.mapper.frames.next_id)
-    for i in range(3, N_FRAMES):
-        n_kf = len(df.mapper.kf_slots)
-        before = dict(sg.LAUNCHES)
+    ate_at = {}     # frames fed -> (rigid ATE so far, keyframes built, evictions)
+    for i in range(3, n_frames):
+        n_kf = df.mapper._next_kid
+        before = launch_counts()
         t1 = time.perf_counter()
         df.process_frame(float(i), frames[i])
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t1) * 1e3
         n_fr = int(df.mapper.frames.next_id)
-        kind = ("keyframe events" if len(df.mapper.kf_slots) > n_kf else
+        kind = ("keyframe events" if df.mapper._next_kid > n_kf else
                 "one-way-frame events" if n_fr > n_frames_enq else
                 "tracking-only frames")
         n_frames_enq = n_fr
         ms_by[kind].append(dt)
-        for k, v in sg.LAUNCHES.items():
+        for k, v in launch_counts().items():
             launches_by[kind][k] += v - before[k]
+        if (i + 1) % 20 == 0:
+            est = df.trajectory
+            ate_at[i + 1] = (round(tum_io.ate_rmse(
+                est, [(ts, poses[int(ts)]) for ts, _ in est]), 4),
+                df.mapper._next_kid, df.n_evictions)
     total_s = time.perf_counter() - t0
-    launches = dict(sg.LAUNCHES)
 
     est = df.trajectory
     for _, p in est:
@@ -414,21 +623,102 @@ def phase_e2e(dev, decoder):
     gt = [(ts, poses[int(ts)]) for ts, _ in est]
     ate = tum_io.ate_rmse(est, gt)
     tracked = 1.0 - df.n_lost_frames / max(df.n_frames, 1)
-    stat = lambda v: (f"n={len(v)} mean {np.mean(v):.1f} median "
-                      f"{np.median(v):.1f} max {np.max(v):.1f} ms"
-                      if v else "n=0")
-    log(f"e2e: {df.n_frames} frames after bootstrap ({boot_s:.2f} s), total "
-        f"{total_s:.2f} s, {1e3 * total_s / N_FRAMES:.1f} ms/frame overall")
+    log(f"{tag}: {df.n_frames} frames after bootstrap ({boot_s:.2f} s), total "
+        f"{total_s:.2f} s, {1e3 * total_s / n_frames:.1f} ms/frame overall")
     for kind, v in ms_by.items():
-        log(f"e2e {kind}: {stat(v)}")
-    log(f"e2e keyframes {len(df.mapper.kf_slots)}, one-way frames "
+        log(f"{tag} {kind}: {stat(v)}")
+    log(f"{tag} evictions: {stat(evict_ms)}; of which linearise + Schur + "
+        f"PSD projection on the card: {stat(eliminate_ms)}")
+    log(f"{tag} keyframes built {df.mapper._next_kid}, live "
+        f"{len(df.mapper.kf_slots)}, evicted {df.n_evictions}, one-way frames "
         f"{len(ms_by['one-way-frame events'])}, tracked fraction "
-        f"{tracked:.4f}, lost {df.n_lost_frames}, rigid ATE {ate:.4f} m "
-        f"(bound {ATE_BOUND_M})")
-    log(f"e2e kernel launches: {launches}; by event kind: {launches_by}")
+        f"{tracked:.4f}, lost {df.n_lost_frames}, rigid ATE {ate:.4f} m")
+    log(f"{tag} (ATE m, keyframes built, evictions) by frames fed: {ate_at}")
+    log(f"{tag} kernel launches: {launch_counts()}; by event kind: "
+        f"{launches_by}")
+    return dict(df=df, cam=cam, frames=frames, ate=ate, tracked=tracked,
+                evicted=evicted, ate_at=ate_at)
+
+
+def phase_e2e(dev, decoder):
+    """Phase 4: 60 frames in a window of 32 keyframes (no eviction)."""
+    r = run_facade(dev, decoder, "e2e", scene_seed=7, n_frames=N_FRAMES,
+                   max_keyframes=32, max_factors=128)
+    launches = launch_counts()
+    df = r["df"]
     assert df.n_lost_frames == 0, "frames lost"
+    assert df.n_evictions == 0, "a window of 32 evicted"
+    path = ("se3_gram_batch", "sfm_gram_batch", "sfm_error_batch")
+    assert all(launches[k] > 0 for k in path), f"kernel not launched: {launches}"
+    assert r["ate"] < ATE_BOUND_M, f"ATE {r['ate']} >= {ATE_BOUND_M}"
+    return launches
+
+
+def phase_long_run(dev, decoder):
+    """Phase 5: the run that outlives its keyframe window, then the map
+    dump with per-factor errors and one warp render."""
+    import torch
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+    from deepfactors_tpu_torch.ops import dense_sfm as ds
+
+    r = run_facade(dev, decoder, "long run", scene_seed=LONG_SCENE_SEED,
+                   n_frames=LONG_FRAMES, max_keyframes=LONG_WINDOW,
+                   max_factors=64)
+    df = r["df"]
+    m = df.mapper
+    assert df.n_lost_frames == 0 and r["tracked"] == 1.0, "frames lost"
+    assert df.n_evictions >= 10, f"only {df.n_evictions} evictions"
+    assert df.n_evictions == m._next_kid - LONG_WINDOW == len(r["evicted"]), \
+        (df.n_evictions, m._next_kid, len(r["evicted"]))
+    assert [a["id"] for a in m.archived] == r["evicted"], "archive incomplete"
+    assert len(m.kf_slots) == LONG_WINDOW
+    assert r["ate"] < LONG_ATE_BOUND_M, f"ATE {r['ate']} >= {LONG_ATE_BOUND_M}"
+
+    before = launch_counts()
+    t0 = time.perf_counter()
+    dump = m.dump_state(verbose_errors=True)
+    dump_ms = (time.perf_counter() - t0) * 1e3
+    json.dumps(dump)
+    kf_kf = [f for f in dump["photo_factors"] if not f["dst_is_frame"]]
+    levels = {f["level"] for f in kf_kf}
+    n_dump = launch_counts()["sfm_error_batch"] - before["sfm_error_batch"]
+    assert kf_kf and n_dump == len(levels) > 0, (len(kf_kf), n_dump, levels)
+    for f in kf_kf:
+        assert np.isfinite(f["residual"]) and f["inliers"] > 0, f
+    assert len(dump["archived"]) == df.n_evictions
+    assert all(np.isfinite(a["q"]).all() and np.isfinite(a["t"]).all()
+               for a in dump["archived"])
+    assert len(dump["keyframes"]) == LONG_WINDOW
+    n_prior = sum(k["has_marginal_prior"] for k in dump["keyframes"])
+
+    # the current keyframe rendered into the last frame's view
+    kf = df.curr_kf
+    lvl0 = m.state.levels[0]
+    pose_10 = se3m.relative_pose(
+        SE3(torch.as_tensor(df.pose_wc.q, device=dev),
+            torch.as_tensor(df.pose_wc.t, device=dev)),
+        se3m.index(m.state.pose, kf))
+    before = launch_counts()
+    last = torch.as_tensor(r["frames"][-1], dtype=torch.float32, device=dev)
+    warped, stats = ds.se3_warp(pose_10, r["cam"], lvl0.img[kf], last,
+                                lvl0.dpt[kf])
+    torch.cuda.synchronize()
+    n_warp = launch_counts()["se3_warp_batch"] - before["se3_warp_batch"]
+    res, inl = float(stats.residual), float(stats.inliers)
+    assert n_warp == 1 and warped.shape == (H, W)
+    assert torch.isfinite(warped).all() and np.isfinite(res)
+    assert res > 0 and inl > 0, (res, inl)
+    launches = launch_counts()
+    log(f"long run dump: {len(kf_kf)} keyframe-to-keyframe factors at levels "
+        f"{sorted(levels)} evaluated in {n_dump} sfm_error_batch launches, "
+        f"{dump_ms:.1f} ms; {len(dump['archived'])} archived, {n_prior} of "
+        f"{LONG_WINDOW} keyframes hold a marginal prior, "
+        f"{len(dump['links'])} links; median residual per inlier "
+        f"{np.median([f['residual'] / f['inliers'] for f in kf_kf]):.3e}")
+    log(f"long run warp: keyframe {kf} into the last frame, {int(inl)} of "
+        f"{H * W} pixels valid, mean squared residual {res / inl:.3e}")
     assert all(v > 0 for v in launches.values()), f"kernel not launched: {launches}"
-    assert ate < ATE_BOUND_M, f"ATE {ate} >= {ATE_BOUND_M}"
     return launches
 
 
@@ -463,19 +753,28 @@ def main():
 
     kern = phase_kernels(dev)
     decoder = phase_decoder(dev)
-    launches = phase_e2e(dev, decoder)
+    launches_e2e = phase_e2e(dev, decoder)
+    launches = phase_long_run(dev, decoder)
 
     meta = {
         "se3_gram_batch": ("deepfactors_tpu_torch/csrc/se3_gram.cu",
                            "deepfactors_tpu/ops/pallas/sfm_kernel.py:680"),
         "sfm_gram_batch": ("deepfactors_tpu_torch/csrc/sfm_gram.cu",
                            "deepfactors_tpu/ops/pallas/sfm_kernel.py:545"),
+        "sfm_error_batch": ("deepfactors_tpu_torch/csrc/sfm_error.cu",
+                            "deepfactors_tpu/ops/pallas/sfm_kernel.py:783"),
+        "se3_warp_batch": ("deepfactors_tpu_torch/csrc/sfm_error.cu",
+                           "deepfactors_tpu/ops/pallas/sfm_kernel.py:874"),
     }
     rows = []
     for name, (src, rep) in meta.items():
         r = kern[name]
+        # launches: the long run (phase 5), which drives all four kernels;
+        # launches_by_path also gives the 60-frame run's (phase 4)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": launches[name],
+                     "launches_by_path": {"e2e_60_frames": launches_e2e[name],
+                                          "long_run": launches[name]},
                      "max_abs_err": r["max_abs_err"],
                      "max_rel_err": r["max_rel_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -4,8 +4,9 @@ PyTorch port of ``deepfactors_tpu/mapping/factors.py``. Every factor of a
 pyramid level is linearised in ONE ``sfm_gram_batch`` call straight from
 the keyframe pools (the CUDA kernel on the card, its plain twin on the
 CPU), then expanded to the reference's 44-dim systems by
-``system_from_gram``. The JAX package's one-hot ``take_rows`` gathers are
-plain indexing here.
+``system_from_gram``; ``photometric_error_batch`` evaluates residuals only,
+in one ``sfm_error_batch`` call. The JAX package's one-hot ``take_rows``
+gathers are plain indexing here.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from ..geometry import se3 as se3m
 from ..geometry.camera import PinholeCamera
 from ..ops import dense_sfm as ds
+from ..ops.kernels import sfm_error as se
 from ..ops.kernels import sfm_gram as sg
 from . import map_state as ms
 
@@ -75,3 +77,21 @@ def photometric_batch(state: ms.MapState, src: Tensor, dst: Tensor,
         lvl.prx0 if depth_from_code else lvl.dpt, lvl.jac, lvl.img, gx, gy,
         active=active, grad_mode=grad_mode, depth_from_code=depth_from_code,
         loss=loss)
+
+
+def photometric_error_batch(state: ms.MapState, src: Tensor, dst: Tensor,
+                            level: int, cam_level: PinholeCamera,
+                            params: ds.SfmParams):
+    """Residual-only evaluation of keyframe pairs (src -> dst) at the
+    materialised depth ``lvl.dpt`` (for statistics and inspection),
+    mirroring PhotometricFactor::error -> RunWarping
+    (photometric_factor.cpp:61-81): (residual [P], inliers [P]) from one
+    ``sfm_error_batch`` call. The evaluation uses border 1 and min_dpt 0
+    whatever ``params`` holds, like ``ds.sfm_evaluate_error``."""
+    lvl = state.levels[level]
+    pose_10 = se3m.relative_pose(ms.poses_of(state, dst),
+                                 ms.poses_of(state, src))
+    kp = sg.make_sfm_params(pose_10, cam_level, 1, 0.0, params.huber_delta,
+                            params.avg_dpt)
+    return se.sfm_error_batch(kp, src.to(torch.int32), dst.to(torch.int32),
+                              lvl.img, lvl.dpt, lvl.img)

@@ -5,10 +5,10 @@ keyframe_map.h:31-129, keyframe.h:33-97): all keyframe state lives in dense
 [K, ...] device tensors; "allocation" flips an active flag.
 
 Unlike the JAX package (immutable arrays, every write rebuilds the state),
-``add_keyframe`` and ``update_depth_all`` write the pools IN PLACE and
-return the same state object. The keyframe links and the depth gradient of
-the JAX map serve loop closure, eviction and geometric factors, which come
-with later slices.
+``add_keyframe``, ``update_depth_all``, ``add_link`` and ``remove_link``
+write the pools IN PLACE and return the same state object. The level-0
+depth gradient of the JAX map serves only the geometric factor and comes
+with it.
 """
 from __future__ import annotations
 
@@ -44,10 +44,14 @@ class MapState(NamedTuple):
     pose: SE3        # q [K, 4], t [K, 3] — camera-to-world
     code: Tensor     # [K, CS]
     levels: tuple    # tuple[LevelData], finest first
+    # undirected link table (keyframe_map.h links), stored directed per slot
+    link_src: Tensor     # [Lmax] int32 slot index
+    link_dst: Tensor     # [Lmax] int32 slot index
+    link_active: Tensor  # [Lmax] bool
     next_id: Tensor  # [] int32
 
 
-def create(K: int, CS: int, H: int, W: int, num_levels: int,
+def create(K: int, CS: int, H: int, W: int, num_levels: int, max_links: int,
            device="cuda") -> MapState:
     z = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype,
                                                     device=device)
@@ -65,6 +69,9 @@ def create(K: int, CS: int, H: int, W: int, num_levels: int,
         pose=se3m.identity((K,), device=device),
         code=z(K, CS),
         levels=tuple(levels),
+        link_src=z(max_links, dtype=torch.int32),
+        link_dst=z(max_links, dtype=torch.int32),
+        link_active=z(max_links, dtype=torch.bool),
         next_id=z(dtype=torch.int32),
     )
 
@@ -102,6 +109,18 @@ def update_depth_all(state: MapState, avg_dpt: float) -> MapState:
     for lvl in state.levels:
         prx = lvl.prx0 + torch.einsum("kchw,kc->khw", lvl.jac, state.code)
         lvl.dpt.copy_(wp.prox_to_depth(torch.clamp(prx, min=1e-4), avg_dpt))
+    return state
+
+
+def add_link(state: MapState, link_idx: int, src: int, dst: int) -> MapState:
+    state.link_src[link_idx] = src
+    state.link_dst[link_idx] = dst
+    state.link_active[link_idx] = True
+    return state
+
+
+def remove_link(state: MapState, link_idx: int) -> MapState:
+    state.link_active[link_idx] = False
     return state
 
 

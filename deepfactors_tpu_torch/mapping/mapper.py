@@ -15,13 +15,18 @@ exit on ``max_delta < relin_threshold``).
 
 The map pools, frame store and marginal store are updated IN PLACE.
 
-Not in this slice (each raises ``NotImplementedError``): keyframe eviction
-when the window is full (``marginalize_keyframe``), reprojection and
+A full keyframe window evicts: the oldest unprotected keyframe is
+marginalised into priors on its neighbours (``marginalize_keyframe``), its
+pose is archived and its slot reused. ``dump_state`` / ``save_graphs``
+inspect the map; with ``verbose_errors`` every live keyframe-to-keyframe
+factor is evaluated by ``sfm_error_batch``.
+
+Not ported yet (each raises ``NotImplementedError``): reprojection and
 geometric factors, depth priors, the native scheduler.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -33,7 +38,10 @@ from ..geometry.camera import PinholeCamera, camera_pyramid
 from ..geometry.se3 import SE3
 from ..ops import dense_sfm as ds
 from ..ops import image as ip
+from ..ops.kernels import sfm_error as se
+from ..ops.kernels import sfm_gram as sg
 from ..solver import system as sysm
+from ..solver.nearest_psd import nearest_psd
 from ..tracking.tracker import TrackerConfig, track_c2f
 from ..utils.timing import tic, toc
 from . import factors as fct
@@ -44,9 +52,6 @@ from .mapper_pools import FactorPool
 from .scheduler import make_scheduler
 
 Tensor = torch.Tensor
-
-_EVICTION_SLICE = ("keyframe eviction (marginalize_keyframe, "
-                   "solver/nearest_psd) comes with the next slice of the port")
 
 
 class MapperConfig(NamedTuple):
@@ -93,6 +98,29 @@ def _check_supported(cfg: MapperConfig):
                 f"set {flag}=False")
 
 
+def schur_eliminate_block(H: Tensor, g: Tensor, B: int, N: int):
+    """Eliminate the leading B variables of the system (H [D, D], g [D]),
+    D = (1 + N)·B, and return the N diagonal blocks of the complement with
+    their gradients: (Hb [N, B, B] PSD-projected, gb [N, B]). Cross blocks
+    between the N remaining variables are dropped.
+
+    H is symmetrised first (scatter-add rounding can leave it asymmetric),
+    the eliminated block is damped by 1e-6·I, and non-finite results are
+    zeroed before the eigendecomposition: a non-finite block carries no
+    usable information and ``eigh`` raises or returns rubbish on NaN."""
+    H = 0.5 * (H + H.T)
+    Hvv = H[:B, :B] + 1e-6 * torch.eye(B, dtype=H.dtype, device=H.device)
+    Hnv = H[B:, :B]
+    sol = torch.linalg.solve(Hvv, torch.cat([Hnv.T, g[:B, None]], dim=1))
+    Hnn = H[B:, B:] - Hnv @ sol[:, :-1]
+    gn = g[B:] - Hnv @ sol[:, -1]
+    k = torch.arange(N, device=H.device)
+    Hb = Hnn.reshape(N, B, N, B)[k, :, k, :]
+    Hb = 0.5 * (Hb + Hb.transpose(-1, -2))
+    gb = torch.where(torch.isfinite(gn), gn, torch.zeros_like(gn))
+    return nearest_psd(Hb), gb.reshape(N, B)
+
+
 class Mapper:
     def __init__(self, cfg: MapperConfig, cam: PinholeCamera, decoder=None,
                  device="cuda"):
@@ -107,12 +135,15 @@ class Mapper:
         self.params = ds.SfmParams(huber_delta=cfg.huber_delta,
                                    avg_dpt=cfg.avg_dpt, min_dpt=cfg.min_dpt,
                                    valid_border=cfg.valid_border)
+        # observer of evictions, fn(slot, kf_id); survives reset()
+        self.evict_callback: Optional[Callable[[int, int], None]] = None
         self.reset()
 
     def reset(self):
         cfg, dev = self.cfg, self.device
         self.state = ms.create(cfg.max_keyframes, cfg.code_size, cfg.height,
-                               cfg.width, cfg.pyramid_levels, device=dev)
+                               cfg.width, cfg.pyramid_levels,
+                               max_links=4 * cfg.max_factors, device=dev)
         self.frames = fr.create(cfg.max_frames, cfg.height, cfg.width,
                                 cfg.pyramid_levels, device=dev)
         self.sched = make_scheduler(cfg)
@@ -122,6 +153,14 @@ class Mapper:
         self.frame_slots: list[int] = []
         self.kf_ids: dict[int, int] = {}   # id -> slot
         self._next_kid = 0
+        self._link_free: list[int] = []    # recycled link-table slots
+        self.n_links = 0
+        self.links_host: list = []         # (link slot, (slot_a, slot_b))
+        # keyframe eviction: slots the facade needs live (the tracker's
+        # keyframe, the newest keyframes) are never evicted; evicted
+        # keyframes leave their id and final pose in the archive
+        self.protected_slots: set = set()
+        self.archived: list[dict] = []
         self._anchor_pose: SE3 = se3m.identity(device=dev)
         self.last_max_delta = float("inf")
         self.frame_active_host = np.zeros(cfg.max_frames, bool)
@@ -152,12 +191,150 @@ class Mapper:
         for s in range(self.cfg.max_keyframes):
             if s not in self.kf_slots:
                 return s
-        raise NotImplementedError(
-            f"the keyframe window is full ({self.cfg.max_keyframes}): "
-            + _EVICTION_SLICE)
+        # window full: marginalise the oldest unprotected keyframe to a
+        # prior and reuse its slot
+        return self.marginalize_keyframe(self._select_victim())
+
+    def _select_victim(self) -> int:
+        for s in self.kf_slots:
+            if s not in self.protected_slots:
+                return s
+        raise RuntimeError(
+            "keyframe capacity exceeded and every slot is protected — "
+            "raise max_keyframes")
 
     def marginalize_keyframe(self, victim: int) -> int:
-        raise NotImplementedError(_EVICTION_SLICE)
+        """Evict keyframe ``victim``: JOINTLY eliminate its (pose, code)
+        block from the sum of all factors touching it — photometric factors
+        plus the victim's zero-code prior and its accumulated marginal
+        prior — and hand the resulting marginal information to the
+        surviving neighbours (the ``marginalizeLeaves`` equivalent,
+        mapper.cpp:395-436). Archives the final pose and frees the slot and
+        every factor, work and link touching it. Returns the slot.
+
+        The joint elimination matters: eliminating a code block per factor
+        WITHOUT the code prior inverts a near-singular Hessian (texture-poor
+        code directions) and injects unbounded priors. Cross-neighbour
+        information blocks are dropped (the marginal store is block-diagonal
+        per keyframe)."""
+        tic("kf:evict")
+        if victim not in self.kf_slots:
+            raise ValueError(f"slot {victim} holds no live keyframe")
+        self.marginalize_frames()   # frame factors reference keyframes
+        pool = self.sched.photo_pool
+        facs, neighbors = [], []
+        for i in range(self.cfg.max_factors):
+            if not pool.active[i] or pool.dst_is_frame[i]:
+                continue
+            s, d = int(pool.src[i]), int(pool.dst[i])
+            if victim not in (s, d):
+                continue
+            nb = d if s == victim else s
+            if nb not in self.kf_slots:
+                continue
+            if nb not in neighbors:
+                neighbors.append(nb)
+            facs.append((s, d, int(pool.level[i])))
+        if facs:
+            self._eliminate(victim, facs, neighbors)
+        # archive the final pose before the slot is reused, as device
+        # tensors: a host read here would stall every eviction; readers
+        # (dump_state) copy at the end of a run. Clones, since the pools are
+        # written in place.
+        kid = next((k for k, v in self.kf_ids.items() if v == victim), -1)
+        self.archived.append({"id": kid,
+                              "q": self.state.pose.q[victim].clone(),
+                              "t": self.state.pose.t[victim].clone()})
+        self.sched.erase_keyframe(victim)
+        for li, pair in list(self.links_host):
+            if victim in pair:
+                self.links_host.remove((li, pair))
+                self._link_free.append(li)
+                ms.remove_link(self.state, li)
+        was_anchor = self.kf_slots[0] == victim
+        self.kf_slots.remove(victim)
+        if kid >= 0:
+            del self.kf_ids[kid]
+        self.state.active[victim] = False
+        mg.clear(self.marginals, victim)
+        if was_anchor and self.kf_slots:
+            # re-anchor the gauge prior on the new oldest keyframe at its
+            # current estimate (gauge continuity)
+            a = self.kf_slots[0]
+            self._anchor_pose = SE3(self.state.pose.q[a].clone(),
+                                    self.state.pose.t[a].clone())
+        if self.evict_callback is not None:
+            self.evict_callback(victim, kid)
+        toc("kf:evict")
+        return victim
+
+    def _eliminate(self, victim: int, facs, neighbors) -> None:
+        """The device side of an eviction (the body of the JAX ``_evict_fn``):
+        linearise every victim-touching photometric factor at its level,
+        add the victim's zero-code prior and its own marginal prior
+        transported to the current estimate, Schur-eliminate the victim
+        block, PSD-project each neighbour's diagonal block and accumulate it
+        into the marginal store. Exact sizes: no padding of factors or
+        neighbours. No host read."""
+        cfg, dev = self.cfg, self.device
+        CS = cfg.code_size
+        B = 6 + CS
+        N = len(neighbors)
+        D = (1 + N) * B
+        base = lambda slot: (0 if slot == victim
+                             else B * (1 + neighbors.index(slot)))
+        P = len(facs)
+        src = np.array([f[0] for f in facs], np.int64)
+        dst = np.array([f[1] for f in facs], np.int64)
+        lvls = np.array([f[2] for f in facs], np.int64)
+        idx = np.zeros((P, 12 + CS), np.int64)
+        for j, (s, d, _) in enumerate(facs):
+            idx[j] = np.concatenate([base(s) + np.arange(6),
+                                     base(d) + np.arange(6),
+                                     base(s) + 6 + np.arange(CS)])
+        src_d = torch.as_tensor(src, device=dev)
+        dst_d = torch.as_tensor(dst, device=dev)
+        idx_d = torch.as_tensor(idx, device=dev)
+        st = self.state
+        dpts = self._depth_pyramid()
+        pose0, pose1 = ms.poses_of(st, src_d), ms.poses_of(st, dst_d)
+        code0 = st.code[src_d]
+        H = torch.zeros((D, D), device=dev)
+        g = torch.zeros((D,), device=dev)
+        for l in sorted(set(lvls.tolist())):
+            at_l = torch.as_tensor(lvls == l, device=dev)
+            lp, lloss = self._level_loss(l)
+            lvl = st.levels[l]
+            gx, gy = fct._grad_planes(lvl.grad, cfg.grad_mode)
+            batch = fct.photometric_gram_pools(
+                pose0, pose1, code0, src_d, dst_d, self.cams[l], lp, lvl.img,
+                dpts[l], lvl.jac, lvl.img, gx, gy, active=at_l,
+                grad_mode=cfg.grad_mode, loss=lloss)
+            gs = sysm.assemble(D, batch.JtJ, batch.Jtr, idx_d, at_l)
+            H = H + gs.H
+            g = g + gs.b
+        # the victim's zero-code prior (df_work.cpp:29-57): the victim owns
+        # it, so its information is folded too, and it regularises the
+        # eliminated code block
+        w_c = 1.0 / cfg.code_prior ** 2
+        code_v = st.code[victim]
+        cd = torch.arange(6, B, device=dev)
+        H[cd, cd] += w_c
+        g[6:B] += w_c * code_v
+        # the victim's own accumulated marginal prior (frames, earlier
+        # evictions), transported to the current estimate
+        mstore = self.marginals
+        m_on = mstore.active[victim].to(torch.float32)
+        anchor = SE3(mstore.anchor_q[victim], mstore.anchor_t[victim])
+        r = torch.cat([se3m.local(anchor, se3m.index(st.pose, victim)),
+                       code_v - mstore.anchor_c[victim]])
+        mH = mstore.H[victim] * m_on
+        H[:B, :B] += mH
+        g[:B] += mH @ r + mstore.b[victim] * m_on
+        Hb, gb = schur_eliminate_block(H, g, B, N)
+        for j, nb in enumerate(neighbors):
+            mg.add_prior(self.marginals, nb, Hb[j], gb[j],
+                         se3m.index(st.pose, nb), st.code[nb])
 
     def _alloc_frame_slot(self) -> int:
         for s in range(self.cfg.max_frames):
@@ -172,19 +349,28 @@ class Mapper:
         img_pyr = tuple(ip.build_pyramid(im, self.cfg.pyramid_levels))
         return img_pyr, tuple(ip.build_gradient_pyramid(img_pyr))
 
-    def _gate_error(self, prx, pose: SE3, img, gs: int):
-        """Level-0 photometric error of warping the new keyframe (at depth
-        from ``prx``) into keyframe ``gs``: the predicted-code gate."""
+    def _gate_errors(self, prxs, pose: SE3, img, gs: int) -> Tensor:
+        """Level-0 photometric error per pixel of warping the new keyframe
+        into keyframe ``gs`` under each depth hypothesis of ``prxs`` (the
+        predicted-code gate): ONE ``sfm_error_batch`` call over the stacked
+        hypotheses, inf where nothing warps into view. The evaluation uses
+        border 1 and min_dpt 0, like ``ds.sfm_evaluate_error``."""
         cfg = self.cfg
+        n = len(prxs)
         lvl0 = self.state.levels[0]
-        dpt = cfg.avg_dpt / torch.clamp(prx, min=1e-4) - cfg.avg_dpt
-        r = ds.sfm_evaluate_error(
-            pose, se3m.index(self.state.pose, gs), self.cam, img,
-            lvl0.img[gs], dpt, torch.zeros_like(dpt), lvl0.grad[gs],
-            self.params)
-        return torch.where(r.inliers > 0,
-                           r.residual / torch.clamp(r.inliers, min=1.0),
-                           torch.full_like(r.residual, float("inf")))
+        dpt = torch.stack([cfg.avg_dpt / torch.clamp(p, min=1e-4) - cfg.avg_dpt
+                           for p in prxs])
+        pose_10 = se3m.relative_pose(se3m.index(self.state.pose, gs), pose)
+        kp = sg.make_sfm_params(
+            SE3(pose_10.q.expand(n, 4), pose_10.t.expand(n, 3)), self.cam,
+            1, 0.0, cfg.huber_delta, cfg.avg_dpt)
+        res, inl = se.sfm_error_batch(
+            kp, torch.arange(n, dtype=torch.int32, device=self.device),
+            torch.zeros(n, dtype=torch.int32, device=self.device),
+            img.expand(n, -1, -1).contiguous(), dpt,
+            lvl0.img[gs][None])
+        return torch.where(inl > 0, res / torch.clamp(inl, min=1.0),
+                           torch.full_like(res, float("inf")))
 
     def add_keyframe_to_map(self, img, pose: SE3, code=None,
                             pyramids_in=None) -> int:
@@ -216,8 +402,8 @@ class Mapper:
                                  for p, j in zip(prx0, jac))
                 if self.kf_slots:
                     gs = self.kf_slots[-1]
-                    e_pred = self._gate_error(prx_pred[0], pose, img_pyr[0], gs)
-                    e_zero = self._gate_error(prx0[0], pose, img_pyr[0], gs)
+                    e_pred, e_zero = self._gate_errors(
+                        (prx_pred[0], prx0[0]), pose, img_pyr[0], gs)
                     use_pred = e_pred <= e_zero
                     prx0 = tuple(torch.where(use_pred, a, b)
                                  for a, b in zip(prx_pred, prx0))
@@ -305,10 +491,10 @@ class Mapper:
                          pyramids_in=None) -> int:
         """EnqueueKeyframe (mapper.cpp:282-344): photometric works both ways
         to the back-connections."""
+        # evict BEFORE selecting back-connections so none references a slot
+        # about to be marginalised
         if len(self.kf_slots) >= self.cfg.max_keyframes:
-            raise NotImplementedError(
-                f"the keyframe window is full ({self.cfg.max_keyframes}): "
-                + _EVICTION_SLICE)
+            self.marginalize_keyframe(self._select_victim())
         conns = self._back_connections()
         slot = self.add_keyframe_to_map(img, pose_init, code,
                                         pyramids_in=pyramids_in)
@@ -344,6 +530,14 @@ class Mapper:
         second = self.sched.add_photo(s1, s0, False, self.cfg.pho_iters,
                                       remove_after=second_removes,
                                       replace=True)
+        if self._link_free:
+            li = self._link_free.pop()
+        else:
+            li = self.n_links
+            self.n_links += 1
+        if li < self.state.link_active.shape[0]:
+            ms.add_link(self.state, li, s0, s1)
+        self.links_host.append((li, (s0, s1)))
         return second
 
     def _back_connections(self) -> list[int]:
@@ -661,3 +855,103 @@ class Mapper:
         """Re-materialise the depth maps after optimisation (UpdateMap,
         mapper.cpp:859-899)."""
         ms.update_depth_all(self.state, self.cfg.avg_dpt)
+
+    # -- introspection -----------------------------------------------------------
+
+    def dump_state(self, verbose_errors: bool = False) -> dict:
+        """Observability dump: work list, factor pools, keyframe table,
+        links, marginal priors, the archive of evicted keyframes — the
+        PrintWork/verbose-factor logging of the reference
+        (mapper.cpp:591-632). With ``verbose_errors`` every active
+        keyframe-to-keyframe photometric factor is evaluated once (residual
+        and inliers), one ``sfm_error_batch`` call per pool level. The
+        reprojection and geometric lists stay empty until those factors are
+        ported."""
+        out: dict = {"keyframes": [], "works": [], "photo_factors": [],
+                     "rep_factors": [], "geo_factors": [], "links": [],
+                     "archived": [dict(a, q=a["q"].tolist(), t=a["t"].tolist())
+                                  for a in self.archived]}
+        ids = self.state.ids.cpu().numpy()
+        marg = self.marginals.active.cpu().numpy()
+        poses_t = self.state.pose.t.cpu().numpy()
+        code_n = torch.linalg.norm(self.state.code, dim=-1).cpu().numpy()
+        for s in self.kf_slots:
+            out["keyframes"].append({
+                "slot": s, "id": int(ids[s]),
+                "t": [round(float(x), 4) for x in poses_t[s]],
+                "code_norm": round(float(code_n[s]), 4),
+                "has_marginal_prior": bool(marg[s]),
+            })
+        for w in self.sched.wm.work:
+            out["works"].append({
+                "name": w.name, "level": w.active_level,
+                "iters": list(w.iters), "first": w.first,
+                "remove": w.remove, "pool_slot": w.pool_slot,
+            })
+        pool = self.sched.photo_pool
+        err = inl = None
+        if verbose_errors and np.any(pool.active & ~pool.dst_is_frame):
+            err, inl = self._eval_factor_errors()
+        for i in range(self.cfg.max_factors):
+            if not pool.active[i]:
+                continue
+            row = {"slot": i, "src": int(pool.src[i]),
+                   "dst": int(pool.dst[i]),
+                   "dst_is_frame": bool(pool.dst_is_frame[i]),
+                   "level": int(pool.level[i])}
+            if err is not None and not pool.dst_is_frame[i]:
+                row["residual"] = round(float(err[i]), 6)
+                row["inliers"] = int(inl[i])
+            out["photo_factors"].append(row)
+        out["links"] = [list(pair) for _, pair in self.links_host]
+        return out
+
+    def _eval_factor_errors(self):
+        """Photometric evaluation of every active keyframe-to-keyframe
+        factor at its pool level (PhotometricFactor::error, the
+        SaveGraphs/verbose data source): one ``photometric_error_batch``
+        call per level present, at the depth of the current codes. Returns
+        host arrays (residual, inliers) indexed by pool slot."""
+        pool = self.sched.photo_pool
+        dev = self.device
+        ms.update_depth_all(self.state, self.cfg.avg_dpt)
+        errs = np.zeros(self.cfg.max_factors)
+        inls = np.zeros(self.cfg.max_factors)
+        live = pool.active & ~pool.dst_is_frame
+        for l in sorted({int(v) for v in pool.level[live]}):
+            sel = np.nonzero(live & (pool.level == l))[0]
+            res, inl = fct.photometric_error_batch(
+                self.state,
+                torch.as_tensor(pool.src[sel].astype(np.int32), device=dev),
+                torch.as_tensor(pool.dst[sel].astype(np.int32), device=dev),
+                l, self.cams[l], self.params)
+            errs[sel] = res.cpu().numpy()
+            inls[sel] = inl.cpu().numpy()
+        return errs, inls
+
+    def save_graphs(self, path: str):
+        """Graphviz export of the factor graph (SaveGraphs,
+        mapper.cpp:569-587): keyframe and frame nodes, factor edges labelled
+        by kind and level, a diamond per marginal prior."""
+        lines = ["graph factors {", "  node [shape=circle];"]
+        ids = self.state.ids.cpu().numpy()
+        for s in self.kf_slots:
+            lines.append(f'  k{s} [label="kf{int(ids[s])}"];')
+        for s in self.frame_slots:
+            if self.frame_active_host[s] and not self.frame_marg_host[s]:
+                lines.append(f'  f{s} [label="fr{s}" shape=box];')
+        pool = self.sched.photo_pool
+        for i in range(self.cfg.max_factors):
+            if pool.active[i]:
+                dst = (f"f{int(pool.dst[i])}" if pool.dst_is_frame[i]
+                       else f"k{int(pool.dst[i])}")
+                lines.append(f'  k{int(pool.src[i])} -- {dst} '
+                             f'[label="pho L{int(pool.level[i])}"];')
+        marg = self.marginals.active.cpu().numpy()
+        for s in self.kf_slots:
+            if marg[s]:
+                lines.append(f'  m{s} [label="prior" shape=diamond];')
+                lines.append(f"  m{s} -- k{s};")
+        lines.append("}")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")

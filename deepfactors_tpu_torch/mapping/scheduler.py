@@ -146,6 +146,20 @@ class PyScheduler:
                     and self.photo_pool.dst[i] == fslot):
                 self.photo_pool.active[i] = False
 
+    def erase_keyframe(self, slot: int):
+        """Drop every work and pool factor touching an evicted keyframe slot
+        (the WorkManager::Erase analogue for keyframes: the reference never
+        evicts, see ``Mapper.marginalize_keyframe``). A work's pool entry
+        carries the work's own src and dst, so the sweep over the pool frees
+        it too."""
+        self.wm.erase_involving(slot, is_frame=False)
+        p = self.photo_pool
+        for i in range(self.cfg.max_factors):
+            if p.active[i] and (p.src[i] == slot
+                                or (not p.dst_is_frame[i]
+                                    and p.dst[i] == slot)):
+                p.active[i] = False
+
     def bookkeeping(self):
         """Work::Bookkeeping (df_work.cpp:117-136): place new works and
         level changes into the pool, free removed works."""

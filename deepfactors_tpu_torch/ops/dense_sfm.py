@@ -7,8 +7,10 @@ cu_se3aligner.cpp:77-113, per-pixel math dense_sfm.h:72-201 and
 lucas_kanade_se3.h:35-95). Jacobians are built feature-major ([D, N]) and
 reduced with one matmul.
 
-``se3_step`` is one factor of ``ops/kernels/sfm_gram.se3_gram_batch``: the
-tracking kernel on a CUDA tensor, its plain twin on the CPU.
+``se3_step`` is one factor of ``ops/kernels/sfm_gram.se3_gram_batch`` and
+``se3_warp`` one factor of ``ops/kernels/sfm_error.se3_warp_batch``: the
+CUDA kernel on a CUDA tensor, its plain twin on the CPU.
+``sfm_evaluate_error`` is the eager reference of ``sfm_error_batch``.
 
 Pose convention (cu_sfmaligner.cpp:131-133): pose0/pose1 are camera-to-world
 keyframe poses; pose_10 = pose1^-1 * pose0 maps cam0 points into cam1.
@@ -25,6 +27,7 @@ from ..geometry.camera import PinholeCamera
 from ..geometry.m_estimators import huber_weight, tukey_sqrt_weight
 from ..geometry.se3 import SE3
 from .image import bilinear_sample, bilinear_sample_grad
+from .kernels import sfm_error as se
 from .kernels import sfm_gram as sg
 
 Tensor = torch.Tensor
@@ -238,6 +241,20 @@ def se3_step(pose_10: SE3, cam: PinholeCamera, img0: Tensor, img1: Tensor,
     JtJ = 0.5 * (G[:6, :6] + G[:6, :6].T)
     return SystemResult(JtJ=JtJ, Jtr=G[:6, 6], residual=G[6, 6],
                         inliers=G[7, 7])
+
+
+def se3_warp(pose_10: SE3, cam: PinholeCamera, img0: Tensor, img1: Tensor,
+             dpt0: Tensor):
+    """Render img1 warped into cam0's frame, with residual and inlier
+    statistics (cu_se3aligner.cpp kernel_warp_calculate :37-75): one factor
+    of ``se3_warp_batch``. Returns (warped [H, W], ErrorResult)."""
+    kp = sg.make_sfm_params(SE3(pose_10.q[None], pose_10.t[None]), cam,
+                            1, 0.0, 0.1, 2.0)
+    z = torch.zeros((1,), dtype=torch.int32, device=img0.device)
+    warped, res, inl = se.se3_warp_batch(kp, z, z, img0[None].contiguous(),
+                                         dpt0[None].contiguous(),
+                                         img1[None].contiguous())
+    return warped[0], ErrorResult(residual=res[0], inliers=inl[0])
 
 
 def _cholesky_nan(A: Tensor) -> Tensor:

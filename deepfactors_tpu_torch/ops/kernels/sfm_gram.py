@@ -27,6 +27,7 @@ always complete — the same as the JAX package's XLA path.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -78,12 +79,24 @@ def _param_col(params: Tensor, k: int) -> Tensor:
     return params[:, k:k + 1]
 
 
-def _warp_rows(params, dpt, img0, img1, gx1, gy1, grad_mode, loss):
-    """Per-pixel warp math of the kernels, batched over factors.
+class _Corr(NamedTuple):
+    """Per-pixel correspondence of P factors, each field [P, N] (the scalars
+    [P, 1]), in the op order of csrc/sfm_common.cuh::correspondence."""
 
-    dpt/img0/img1(/gx1/gy1) are per-factor planes [P, H, W]. Returns
-    (A [6 x [P, N]], err_J_prx [P, N], r [P, N], wv [P, N], valid [P, N]),
-    in the op order of csrc/sfm_common.cuh."""
+    x1: Tensor
+    y1: Tensor
+    valid: Tensor
+    iz: Tensor
+    u: Tensor
+    v: Tensor
+    tptx: Tensor
+    tpty: Tensor
+    tptz: Tensor
+
+
+def _correspondence(params, dpt) -> _Corr:
+    """FindCorrespondence of every pixel of dpt [P, H, W] under each factor's
+    params row. Invalid pixels keep their own coordinates and iz = 0."""
     P, H, W = dpt.shape
     dev = dpt.device
     xs = torch.arange(W, dtype=torch.float32, device=dev).repeat(H)
@@ -92,7 +105,7 @@ def _warp_rows(params, dpt, img0, img1, gx1, gy1, grad_mode, loss):
     R = [c(_R0 + k) for k in range(9)]
     tx, ty, tz = c(_T0), c(_T0 + 1), c(_T0 + 2)
     fx, fy, u0, v0 = c(_FX), c(_FY), c(_U0), c(_V0)
-    border, min_dpt, huber, avg = c(_BORDER), c(_MINDPT), c(_HUBER), c(_AVGDPT)
+    border, min_dpt = c(_BORDER), c(_MINDPT)
 
     d = dpt.reshape(P, -1)
     u = (xs - u0) / fx
@@ -110,6 +123,38 @@ def _warp_rows(params, dpt, img0, img1, gx1, gy1, grad_mode, loss):
     x1 = torch.where(valid, x1, xs)
     y1 = torch.where(valid, y1, ys)
     iz = torch.where(valid, 1.0 / zsafe, torch.zeros_like(zsafe))
+    return _Corr(x1, y1, valid, iz, u, v, tptx, tpty, tptz)
+
+
+def _robust_wv(r, valid, delta, loss):
+    """Square-root IRLS weight zeroed on invalid pixels
+    (csrc/sfm_common.cuh::robust_wv)."""
+    if loss == "tukey":
+        a = r / delta
+        w = torch.clamp(1.0 - a * a, min=0.0)
+    elif loss == "huber":
+        aa = r.abs()
+        hub = torch.sqrt(delta * (2.0 * aa - delta)) / torch.clamp(aa, min=1e-12)
+        w = torch.where(aa <= delta, torch.ones_like(hub), hub)
+    else:
+        raise ValueError(f"unknown loss {loss!r}")
+    return torch.where(valid, w, torch.zeros_like(w))
+
+
+def _warp_rows(params, dpt, img0, img1, gx1, gy1, grad_mode, loss):
+    """Per-pixel warp math of the kernels, batched over factors.
+
+    dpt/img0/img1(/gx1/gy1) are per-factor planes [P, H, W]. Returns
+    (A [6 x [P, N]], err_J_prx [P, N], r [P, N], wv [P, N], valid [P, N]),
+    in the op order of csrc/sfm_common.cuh."""
+    P = dpt.shape[0]
+    c = lambda k: _param_col(params, k)
+    R = [c(_R0 + k) for k in range(9)]
+    tx, ty, tz = c(_T0), c(_T0 + 1), c(_T0 + 2)
+    fx, fy = c(_FX), c(_FY)
+    huber, avg = c(_HUBER), c(_AVGDPT)
+    d = dpt.reshape(P, -1)
+    x1, y1, valid, iz, u, v, tptx, tpty, tptz = _correspondence(params, dpt)
 
     pix = torch.stack([x1, y1], dim=-1)
     if grad_mode == "interp":
@@ -144,16 +189,7 @@ def _warp_rows(params, dpt, img0, img1, gx1, gy1, grad_mode, loss):
     err_J_prx = -(gx * pjd0 + gy * pjd1) * dpt_J_prx
 
     r = img0.reshape(P, -1) - i1
-    if loss == "tukey":
-        a = r / huber
-        w = torch.clamp(1.0 - a * a, min=0.0)
-    elif loss == "huber":
-        aa = r.abs()
-        hub = torch.sqrt(huber * (2.0 * aa - huber)) / torch.clamp(aa, min=1e-12)
-        w = torch.where(aa <= huber, torch.ones_like(hub), hub)
-    else:
-        raise ValueError(f"unknown loss {loss!r}")
-    wv = torch.where(valid, w, torch.zeros_like(w))
+    wv = _robust_wv(r, valid, huber, loss)
     return A, err_J_prx, r, wv, valid
 
 

@@ -9,6 +9,11 @@ deepfactors.cpp:220-366):
   -> NewKeyframeRequired? EnqueueKeyframe : NewFrameRequired? EnqueueFrame
   -> mapping until no work (or one run if interleave_mapping)
 
+A run may outlive its keyframe window: the mapper evicts the oldest
+keyframe that the facade does not protect (the tracker's keyframe and the
+two newest), and the facade observes each eviction through the mapper's
+``evict_callback``.
+
 Sequential only (``pipeline_depth=0``). Loop closure, relocalisation,
 pipelining and the I/O drivers come with later slices: a configuration or
 a run that needs them raises ``NotImplementedError``.
@@ -93,6 +98,7 @@ class DeepFactors:
         self.device = torch.device(device)
         m = cfg.mapper
         self.mapper = Mapper(m, cam, decoder=decoder, device=self.device)
+        self.mapper.evict_callback = self._on_keyframe_evicted
         self.tracker = CameraTracker(
             TrackerConfig(
                 pyramid_levels=m.pyramid_levels,
@@ -121,6 +127,7 @@ class DeepFactors:
         self._last_tracked_nframe = 0
         self.n_frames = 0
         self.n_lost_frames = 0
+        self.n_evictions = 0
 
     def _dev(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
@@ -265,6 +272,18 @@ class DeepFactors:
         """Switch the active tracking keyframe (the frame step indexes the
         map pool directly, so nothing is copied)."""
         self.curr_kf = slot
+        self._protect(slot)
+
+    def _protect(self, slot: int):
+        """The tracker's keyframe and the two newest map keyframes must
+        survive capacity eviction."""
+        self.mapper.protected_slots = {slot} | set(self.mapper.kf_slots[-2:])
+
+    def _on_keyframe_evicted(self, slot: int, kf_id: int):
+        """The mapper's ``evict_callback``: the place where the loop
+        detector moves an evicted keyframe's data to its archive, once loop
+        closure is ported. Counts the evictions."""
+        self.n_evictions += 1
 
     def _set_tracker_keyframe(self, slot: int):
         L = self.cfg.mapper.pyramid_levels
@@ -272,6 +291,7 @@ class DeepFactors:
         self.tracker.set_keyframe([st.levels[l].img[slot] for l in range(L)],
                                   [st.levels[l].dpt[slot] for l in range(L)],
                                   se3m.index(st.pose, slot))
+        self._protect(slot)
 
     def preprocess_image(self, img) -> np.ndarray:
         """PreprocessImage (deepfactors.cpp:634-680): grayscale float in

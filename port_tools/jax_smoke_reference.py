@@ -1,18 +1,27 @@
-"""Reference run of the JAX facade on the end-to-end configuration that
+"""Reference run of the JAX facade on the end-to-end configurations that
 ``chip_smoke.py`` drives through the PyTorch port.
 
 Same scene, trajectory, pacing and system configuration as chip_smoke.py's
-end-to-end phase: ``random_room(7, n_boxes=3)``, the first 60 poses of
+end-to-end phases: ``random_room(seed, n_boxes=3)`` (``--scene-seed``, 7
+unless given), the first ``--frames`` poses of
 ``orbit_trajectory(300, sweep=3.2*pi)`` rendered at 192x256, the
 ``room256_32v4`` decoder, bootstrap on frames 0 and 2, sequential facade
 with loop closure and reprojection factors off. The accuracy numbers it
-prints (tracked fraction, rigid ATE, keyframe count) are the parity target
-and the source of the ATE bound chip_smoke.py asserts.
+prints (tracked fraction, rigid ATE, keyframe and eviction counts, the
+first lost frame) are the parity target and the source of the ATE bounds
+chip_smoke.py asserts.
 
-Run on the CPU:  JAX_PLATFORMS=cpu python port_tools/jax_smoke_reference.py
+Run on the CPU, from the repository root:
+  the 60-frame run in a window of 32 (no eviction):
+    JAX_PLATFORMS=cpu python port_tools/jax_smoke_reference.py
+  the long run that outlives the default window of 16 (in room 5: in
+  room 7 this facade loses tracking at frame 126):
+    JAX_PLATFORMS=cpu python port_tools/jax_smoke_reference.py \
+        --frames 180 --max-keyframes 16 --max-factors 64 --scene-seed 5
 Prints one JSON line. Its wall-clock numbers are CPU numbers and say
 nothing about any accelerator.
 """
+import argparse
 import json
 import os
 import sys
@@ -26,11 +35,22 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-N_FRAMES = 60
 SEQ_LEN = 300
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=60)
+    ap.add_argument("--max-keyframes", type=int, default=32)
+    ap.add_argument("--max-factors", type=int, default=128)
+    ap.add_argument("--scene-seed", type=int, default=7)
+    # the one-way-frame policy's distance (0.12 in every configuration of
+    # chip_smoke.py); other values probe how far a run depends on one
+    # decision falling a frame earlier or later
+    ap.add_argument("--frame-dist-threshold", type=float, default=0.12)
+    args = ap.parse_args()
+    n_frames = args.frames
+
     from deepfactors_tpu.geometry.camera import PinholeCamera
     from deepfactors_tpu.io import synth
     from deepfactors_tpu.mapping.mapper import MapperConfig
@@ -53,24 +73,34 @@ def main():
         pred_head=nj.get("pred_head", "gap"))
     decoder = Decoder(ncfg, params=load_params(prefix + ".pkl"))
 
-    scene = synth.random_room(7, n_boxes=3)
-    poses = synth.orbit_trajectory(SEQ_LEN, sweep=3.2 * np.pi)[:N_FRAMES]
+    scene = synth.random_room(args.scene_seed, n_boxes=3)
+    poses = synth.orbit_trajectory(SEQ_LEN, sweep=3.2 * np.pi)[:n_frames]
     frames = synth.render_sequence(scene, cam, poses, H, W)
 
     cfg = SystemConfig(
         mapper=MapperConfig(
-            max_keyframes=32, max_frames=2, max_factors=128, code_size=32,
+            max_keyframes=args.max_keyframes, max_frames=2,
+            max_factors=args.max_factors, code_size=32,
             height=H, width=W, pyramid_levels=3, pho_iters=(4, 8, 15),
             connection_mode="LASTN", max_back_connections=2,
             use_reprojection=False),
         dist_threshold=2.0, tracking_dist_threshold=5.0,
-        frame_dist_threshold=0.12, loop_closure=False)
+        frame_dist_threshold=args.frame_dist_threshold, loop_closure=False)
     df = DeepFactors(cfg, cam, decoder=decoder)
     t0 = time.perf_counter()
     df.bootstrap_two_frames(frames[0], frames[2], frame_gap=2)
     df.trajectory = [(0.0, df.pose_wc)]
-    for i in range(3, N_FRAMES):
+    first_lost = None
+    ate_at = {}
+    for i in range(3, n_frames):
         df.process_frame(float(i), frames[i])
+        if first_lost is None and df.n_lost_frames > 0:
+            first_lost = i
+        if first_lost is None and (i + 1) % 20 == 0:
+            est = df.trajectory
+            ate_at[i + 1] = [tum_io.ate_rmse(
+                est, [(ts, poses[int(ts)]) for ts, _ in est]),
+                len(df.mapper.archived)]
     wall = time.perf_counter() - t0
 
     est = df.trajectory
@@ -80,6 +110,10 @@ def main():
         "tracked_fraction": 1.0 - df.n_lost_frames / max(df.n_frames, 1),
         "n_lost_frames": df.n_lost_frames,
         "n_keyframes": len(df.mapper.kf_slots),
+        "n_evictions": len(df.mapper.archived),
+        "first_lost_frame": first_lost,
+        # frames fed so far -> [rigid ATE (m), evictions], while none is lost
+        "ate_and_evictions_at": ate_at,
         "n_frames_processed": df.n_frames,
         "cpu_wall_s": wall,
         "platform": jax.devices()[0].platform,

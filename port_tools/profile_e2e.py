@@ -1,15 +1,17 @@
 """Where the time goes in the port's end-to-end run on the GPU.
 
-Runs chip_smoke.py's end-to-end phase (the sequential facade on 60 frames
-of the synthetic room orbit at 192x256 with the room256_32v4 decoder) once
-to warm up, then again under ``torch.profiler`` with CUDA activity only,
-and prints:
+Runs one of chip_smoke.py's end-to-end phases (the sequential facade on the
+synthetic room orbit at 192x256 with the room256_32v4 decoder: 60 frames in
+a window of 32 keyframes, or with ``--long`` the 180 frames in a window of
+16 that evict, with the map dump and warp render after them) once to warm
+up, then again under ``torch.profiler`` with CUDA activity only, and
+prints:
   - the run's wall time and the device's busy time (the union of all
     kernel and copy intervals), hence the device's idle share;
   - the device time by kernel name (count, total, mean), largest first.
 
 Run from the repository root on a machine with a GPU:
-    python3 port_tools/profile_e2e.py [--top 25] [--json PATH]
+    python3 port_tools/profile_e2e.py [--long] [--top 25] [--json PATH]
 ``--json`` also writes the numbers to PATH.
 """
 import argparse
@@ -41,6 +43,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--json", default=None)
+    ap.add_argument("--long", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -59,11 +62,12 @@ def main():
     build.build_all()
     dec = load_decoder(os.path.join(ROOT, "data", "nets", "room256_32v4"),
                        device="cuda")
-    cs.phase_e2e("cuda", dec)                       # warm-up run
+    phase = cs.phase_long_run if args.long else cs.phase_e2e
+    phase("cuda", dec)                              # warm-up run
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cs.phase_e2e("cuda", dec)
+        phase("cuda", dec)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 

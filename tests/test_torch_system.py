@@ -13,7 +13,12 @@ What must agree:
     places (test_torch_decoder.py), which moves depth by ~1e-4; tracking
     and BA carry that along the chain (~1e-5 on the first frames, ~1e-2 by
     frame 15 on this run);
-  - rigid ATE within 1e-2 m of the JAX facade's."""
+  - rigid ATE within 1e-2 m of the JAX facade's.
+
+A second pair of runs shrinks the keyframe window to 4, so the same
+sequence outlives it: keyframe, one-way-frame and eviction decisions
+(victim slot and keyframe id, in order) must be identical, every frame
+tracked, and the poses within the same tolerances."""
 import numpy as np
 import pytest
 import torch
@@ -40,8 +45,8 @@ H, W, N = 48, 64, 15
 POSE_T_TOL, POSE_Q_TOL, ATE_TOL = 3e-2, 1e-2, 1e-2
 
 
-def _cfg(SC, MC):
-    return SC(mapper=MC(max_keyframes=8, max_frames=2, max_factors=16, code_size=4,
+def _cfg(SC, MC, max_keyframes=8):
+    return SC(mapper=MC(max_keyframes=max_keyframes, max_frames=2, max_factors=16, code_size=4,
                         height=H, width=W, pyramid_levels=2, pho_iters=(4, 8),
                         max_back_connections=2, use_reprojection=False),
               tracking_iterations=(10, 5), dist_threshold=2.0,
@@ -52,21 +57,32 @@ def _cfg(SC, MC):
 def _run(df, frames, poses, tum):
     df.bootstrap_two_frames(frames[0], frames[2], frame_gap=2)
     df.trajectory = [(0.0, df.pose_wc)]
-    kf_events = []
+    kf_events, fr_events, evicted = [], [], []
+    on_evict = df.mapper.evict_callback
+
+    def record(slot, kid):
+        evicted.append((slot, kid))
+        on_evict(slot, kid)
+
+    df.mapper.evict_callback = record
     for i in range(3, N):
-        n = len(df.mapper.kf_slots)
+        n_kf = df.mapper._next_kid
+        n_fr = int(np.array(df.mapper.frames.next_id))
         df.process_frame(float(i), frames[i])
-        kf_events.append(len(df.mapper.kf_slots) > n)
+        kf_events.append(df.mapper._next_kid > n_kf)
+        fr_events.append(int(np.array(df.mapper.frames.next_id)) > n_fr)
     gt = [(ts, poses[int(ts)]) for ts, _ in df.trajectory]
-    return dict(kf=kf_events, lost=df.n_lost_frames,
+    return dict(kf=kf_events, fr=fr_events, evicted=evicted,
+                archived=[a["id"] for a in df.mapper.archived],
+                n_live=len(df.mapper.kf_slots), lost=df.n_lost_frames,
+                n_evictions=getattr(df, "n_evictions", None),
                 ts=[ts for ts, _ in df.trajectory],
                 q=np.stack([np.array(p.q) for _, p in df.trajectory]),
                 t=np.stack([np.array(p.t) for _, p in df.trajectory]),
                 ate=tum.ate_rmse(df.trajectory, gt))
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _both(max_keyframes):
     kw = dict(fx=55.0, fy=55.0, u0=W / 2, v0=H / 2, width=W, height=H)
     scene = jsynth.random_room(7, n_boxes=3)
     poses = jsynth.orbit_trajectory(80, sweep=3.2 * np.pi)[:N]
@@ -78,9 +94,20 @@ def runs():
     jdec = JDec(JNC(**ncfg), params=params)
     tdec = TDec(TNC(**ncfg), params=params, device="cpu")
     return dict(
-        jax=_run(JDF(_cfg(JSC, JMC), JCam.create(**kw), decoder=jdec), frames, poses, jtum),
-        torch=_run(TDF(_cfg(TSC, TMC), TCam.create(**kw), decoder=tdec, device="cpu"),
-                   frames, poses, ttum))
+        jax=_run(JDF(_cfg(JSC, JMC, max_keyframes), JCam.create(**kw),
+                     decoder=jdec), frames, poses, jtum),
+        torch=_run(TDF(_cfg(TSC, TMC, max_keyframes), TCam.create(**kw),
+                       decoder=tdec, device="cpu"), frames, poses, ttum))
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return _both(max_keyframes=8)
+
+
+@pytest.fixture(scope="module")
+def runs_evicting():
+    return _both(max_keyframes=4)
 
 
 def test_keyframe_decisions_identical(runs):
@@ -103,3 +130,27 @@ def test_tracked_fraction_and_ate_match(runs):
     a, b = runs["torch"], runs["jax"]
     assert len(a["ts"]) == N - 2             # every processed frame tracked
     assert abs(a["ate"] - b["ate"]) < ATE_TOL
+
+
+def test_evicting_run_decisions_identical(runs_evicting):
+    a, b = runs_evicting["torch"], runs_evicting["jax"]
+    assert a["kf"] == b["kf"] and a["fr"] == b["fr"]
+    assert a["evicted"] == b["evicted"]
+    assert len(a["evicted"]) >= 2            # the run does outlive its window
+    assert a["archived"] == b["archived"] == [kid for _, kid in a["evicted"]]
+    assert a["n_live"] == b["n_live"] == 4
+    assert a["lost"] == b["lost"] == 0
+    assert a["ts"] == b["ts"] and len(a["ts"]) == N - 2
+
+
+def test_evicting_run_poses_close(runs_evicting):
+    a, b = runs_evicting["torch"], runs_evicting["jax"]
+    np.testing.assert_allclose(a["t"], b["t"], atol=POSE_T_TOL)
+    np.testing.assert_allclose(a["q"], b["q"], atol=POSE_Q_TOL)
+    assert abs(a["ate"] - b["ate"]) < ATE_TOL
+
+
+def test_facade_counts_evictions(runs_evicting):
+    """The facade's ``evict_callback`` hook saw every eviction."""
+    a = runs_evicting["torch"]
+    assert a["n_evictions"] == len(a["evicted"]) == len(a["archived"])
