@@ -8,7 +8,8 @@ Phases, in order (any failure exits non-zero before the final line):
      sfm_gram_batch at P = 128 with half the slots inactive, CS 32 and 8,
      Huber/Tukey, from-prox on/off, interp/sampled; se3_gram_batch at
      P = 1 and 8; sfm_error_batch and se3_warp_batch at P = 1, 2 and 64
-     (half the slots inactive). Times kernel and twin with CUDA events.
+     (half the slots inactive); dense_warp_batch at P = 16 and 64 and
+     bilinear_warp_planes at C = 3. Times kernel and twin with CUDA events.
   3. the room256_32v4 decoder forward at 192x256 on the card, held against
      the same module on the CPU.
   4. end to end: the sequential DeepFactors facade on 60 frames of the
@@ -19,6 +20,13 @@ Phases, in order (any failure exits non-zero before the final line):
      window (max_keyframes=16, max_factors=64), 180 frames, so the run
      outlives its window and evicts; then the map dump with per-factor
      errors (sfm_error_batch) and one warp render (se3_warp_batch).
+  6. the parallel/ entry points, single card, full width: (a) the dry-run
+     BA step (K = 8, CS 32, 16 factors at 192x256) through the kernels,
+     against the same step assembled from the plain twins; (b) a large map
+     of 32 decoded keyframes and 236 factors, ``LargeMapBA`` for 10
+     iterations (dense_warp_batch); (c) ``BatchedOdometry`` over 8 rooms
+     for 30 frames (se3_gram_batch at P = 8, sampled gradients); and one
+     ``sfm_step`` (bilinear_warp_planes).
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -77,9 +85,59 @@ WARP_ATOL = 1e-5
 # decoder card vs CPU: bf16 activations round differently in cuDNN and in
 # the CPU convolution; 2e-2 of the largest |value| per output.
 DECODER_TOL = 2e-2
+# dense_warp_batch / bilinear_warp_planes vs their twins: ``valid`` equal,
+# the transformed points and the samples within DENSE_WARP_ATOL absolute
+# (one fp32 expression per pixel, rounded op by op on both sides), NaN in
+# the same places (a sample at a non-finite coordinate).
+DENSE_WARP_ATOL = 1e-6
 H, W = 192, 256
 N_FRAMES = 60
 SEQ_LEN = 300
+
+# Phase 6. port_tools/jax_parallel_reference.py imports these constants and
+# builds the same two problems with the JAX package on a CPU; the limits
+# below sit just above its readings and the card's (PERF.md section 2).
+# The large map: every ``stride``-th pose of the orbit in random_room(5) as
+# a keyframe, the decoder's predicted depth, links to the last ``back``
+# keyframes both ways, poses moved off the truth by ``noise`` (m, rad per
+# axis; keyframe 0 stays: the prior pins it).
+LARGE = dict(scene_seed=5, K=32, stride=2, back=4, iters=10, noise_seed=11,
+             noise=(0.05, 0.02))
+LARGE_SFM = dict(huber_delta=0.3, avg_dpt=2.0, min_dpt=0.0, valid_border=2)
+# The odometry: 8 rooms seen along the first frames of a slow orbit, each
+# tracked against its first frame's true depth; a scene takes its live
+# frame as the new keyframe after kf_dist metres.
+ODO = dict(scene_seeds=(1, 2, 3, 4, 5, 6, 8, 9), frames=30, sweep=0.8 * np.pi,
+           levels=3, iters_per_level=(8, 6, 6), huber=0.3, kf_dist=0.08)
+# The large map after 10 iterations: the JAX package on a CPU reads a
+# residual per inlier of 2.092e-4 (from 1.059e-2) and a keyframe translation
+# error of 0.2139 m rmse against the truth (from 0.0790 m: the photometric
+# optimum under the decoder's depth, whose scale a monocular BA cannot see,
+# lies further from the truth than the perturbed start); the card reads
+# 2.09e-4 and 0.2122 m.
+LARGE_RPI_BOUND = 3e-4
+LARGE_ERR_BOUND_M = 0.25
+# The odometry's worst scene (room 3) reads a translation rmse of 0.0483 m
+# over the 30 frames in both packages, the other scenes 0.003-0.015 m.
+ODO_RMSE_BOUND_M = 0.06
+DRYRUN_TOL = 1e-4            # kernels vs twins, per block of (H, b)
+
+
+def large_map_links():
+    c = LARGE
+    return [(j, i) for i in range(c["K"])
+            for j in range(max(0, i - c["back"]), i)]
+
+
+def large_map_noise():
+    """[K, 6] tangent perturbation of the large map's poses, seeded."""
+    c = LARGE
+    rng = np.random.RandomState(c["noise_seed"])
+    d = np.concatenate([c["noise"][0] * rng.standard_normal((c["K"], 3)),
+                        c["noise"][1] * rng.standard_normal((c["K"], 3))],
+                       axis=1).astype(np.float32)
+    d[0] = 0.0
+    return d
 
 
 def log(*a):
@@ -298,6 +356,7 @@ def phase_kernels(dev):
 
     # --- se3_gram_batch --------------------------------------------------
     n_checks = 0
+    p8_sampled = []
     for P in (1, 8):
         src, dst, _ = factor_set(K, P, dev, seed=2)
         active = torch.ones(P, dtype=torch.int32, device=dev)
@@ -328,7 +387,23 @@ def phase_kernels(dev):
                     results.setdefault("se3_gram_batch", []).append(dict(
                         ms=ms_k, plain_ms=ms_p, bound_ms=bms, bound_by=by,
                         shape=f"P=1 {hw} interp"))
+                if P == 8 and gm == "sampled":
+                    # the multi-scene odometry's shape: one factor a scene
+                    N = lv["img"].shape[1] * lv["img"].shape[2]
+                    planes = (2 * len(set(src.tolist()))
+                              + 3 * len(set(dst.tolist())))
+                    bms, by = bound(planes * N * 4 + P * (sg.PARAM_DIM + 3 + 64) * 4,
+                                    float(Gp[:, 7, 7].sum()) * (72 + 90))
+                    hw = "x".join(map(str, lv["img"].shape[1:]))
+                    p8_sampled.append(dict(
+                        ms=cuda_ms(lambda: sg.se3_gram_batch(*args, **kw), iters=100),
+                        plain_ms=cuda_ms(lambda: sg.se3_gram_batch_plain(*args, **kw)),
+                        bound_ms=bms, bound_by=by, shape=f"P=8 {hw} sampled"))
     summary("se3_gram_batch", n_checks)
+    for r in p8_sampled:
+        log(f"se3_gram_batch at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
     for name, per_level in results.items():
         for r in per_level:
             log(f"{name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -341,7 +416,9 @@ def phase_kernels(dev):
         w = worst[name]
         r["max_abs_err"] = w["abs"]
         r["max_rel_err"] = {k: w[k] for k in ("jtj", "jtr", "res", "g")}
+    out["se3_gram_batch"]["p8_sampled"] = p8_sampled
     out.update(phase_error_kernels(dev, K, cams, levels, q, t))
+    out.update(phase_warp_kernels(dev, K, cams, levels, q, t))
     return out
 
 
@@ -472,6 +549,123 @@ def phase_error_kernels(dev, K, cams, levels, q, t):
                          max_rel_err={"res": w["res"]})
     return out
 
+def phase_warp_kernels(dev, K, cams, levels, q, t):
+    """dense_warp_batch (P = 16, 64 and one chunk of ``sfm_step_batch``)
+    and bilinear_warp_planes (C = 3) against their twins at the three
+    pyramid sizes, at perturbed poses. The first two rows of every source
+    depth are set so that tptz is 0 to rounding there: the coordinates are
+    huge or not finite, and the kernel must still read inside its planes
+    and agree with the twin."""
+    import torch
+    import torch.nn.functional as F
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+    from deepfactors_tpu_torch.ops import dense_sfm as ds
+    from deepfactors_tpu_torch.ops.kernels import dense_warp as dw
+    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
+
+    def diff(a, b):
+        """max |a - b| where both are finite; NaN must sit in the same
+        places, an infinity must be the same infinity."""
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), "NaN in other places"
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        assert torch.equal(a[~fin & ~torch.isnan(a)], b[~fin & ~torch.isnan(b)])
+        return float((a[fin] - b[fin]).abs().max())
+
+    worst = dict.fromkeys(dw.LAUNCHES, 0.0)
+    timed = {n: [] for n in dw.LAUNCHES}
+    n_checks = 0
+    chunk = ds._JT_CHUNK_BYTES // ((12 + 32) * H * W * 4)
+    for P in (16, 64, chunk):
+        src, dst, _ = factor_set(K, P, dev, seed=40 + P)
+        sl, dl = src.long(), dst.long()
+        pose_10 = perturb(se3m.relative_pose(SE3(q[dl], t[dl]),
+                                             SE3(q[sl], t[sl])), seed=50 + P)
+        for l, lv in enumerate(levels):
+            h, w = lv["img"].shape[1:]
+            N = h * w
+            kp = dw.make_warp_params(pose_10, cams[l], 2, 0.0)
+            dpt = lv["dpt"][sl].clone()
+            # depth at which R[2]·pt + t_z = 0 for the pixels of rows 0, 1
+            ys, xs = torch.meshgrid(
+                torch.arange(2, dtype=torch.float32, device=dev),
+                torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+            u = (xs - cams[l].u0) / cams[l].fx
+            v = (ys - cams[l].v0) / cams[l].fy
+            c = lambda k: kp[:, k, None, None]
+            dpt[:, :2] = -c(11) / (c(6) * u + c(7) * v + c(8))
+            args = (kp, dpt, lv["img"][dl], lv["gx"][dl], lv["gy"][dl])
+            ok = dw.dense_warp_batch(*args)
+            op = dw.dense_warp_batch_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(ok[6], op[6]), "dense_warp_batch: valid differs"
+            clean = ok[6][:, 2:]
+            assert float(clean.mean()) > 0.5, "most pixels are invalid"
+            near0 = ok[5][:, :2].abs() < 1e-5
+            assert float(near0.float().mean()) > 0.9, "tptz ~ 0 was not reached"
+            assert float(ok[6][:, :2][near0].mean()) < 0.01
+            for k in range(3):
+                assert torch.isfinite(ok[k][ok[6] > 0.5]).all()
+            d = max(diff(a, b) for a, b in zip(ok[:6], op[:6]))
+            assert d <= DENSE_WARP_ATOL, f"dense_warp_batch differs by {d}"
+            worst["dense_warp_batch"] = max(worst["dense_warp_batch"], d)
+            n_checks += 1
+            bms, by = bound((11 * N + sg.PARAM_DIM) * P * 4, 60 * N * P)
+            timed["dense_warp_batch"].append(dict(
+                ms=cuda_ms(lambda: dw.dense_warp_batch(*args)),
+                plain_ms=cuda_ms(lambda: dw.dense_warp_batch_plain(*args),
+                                 iters=5),
+                bound_ms=bms, bound_by=by, library_ms=None,
+                shape=f"P={P} {h}x{w}"))
+            if P != 16:
+                continue
+            # bilinear_warp_planes at the first factor's coordinates (the
+            # rows at tptz ~ 0 included), as ``sfm_step`` calls it
+            x1 = (cams[l].fx * op[3][0] / op[5][0] + cams[l].u0).contiguous()
+            y1 = (cams[l].fy * op[4][0] / op[5][0] + cams[l].v0).contiguous()
+            chans = torch.stack([a[0] for a in args[2:]])
+            bk = dw.bilinear_warp_planes(chans, x1, y1)
+            bp = dw.bilinear_warp_planes_plain(chans, x1, y1)
+            torch.cuda.synchronize()
+            d = diff(bk, bp)
+            assert d <= DENSE_WARP_ATOL, f"bilinear_warp_planes differs by {d}"
+            assert diff(bk, torch.stack([a[0] for a in ok[:3]])) <= DENSE_WARP_ATOL
+            worst["bilinear_warp_planes"] = max(worst["bilinear_warp_planes"], d)
+            # the nearest PyTorch call; not the same function at the last
+            # row and column, where it blends and the kernel does not
+            grid = torch.stack([2 * x1 / (w - 1) - 1, 2 * y1 / (h - 1) - 1],
+                               dim=-1)[None].nan_to_num(0.0, 2.0, -2.0)
+            lib = lambda: F.grid_sample(chans[None], grid, mode="bilinear",
+                                        padding_mode="border",
+                                        align_corners=True)
+            inside = ((x1 >= 0) & (x1 < w - 1) & (y1 >= 0) & (y1 < h - 1))
+            lib_d = float((lib()[0] - bk)[:, inside].abs().max())
+            C = chans.shape[0]
+            bms, by = bound((2 * C + 2) * N * 4, 30 * N * C)
+            timed["bilinear_warp_planes"].append(dict(
+                ms=cuda_ms(lambda: dw.bilinear_warp_planes(chans, x1, y1),
+                           iters=100),
+                plain_ms=cuda_ms(lambda: dw.bilinear_warp_planes_plain(
+                    chans, x1, y1)),
+                bound_ms=bms, bound_by=by, library_ms=cuda_ms(lib, iters=100),
+                shape=f"C={C} {h}x{w}", grid_sample_max_abs_diff_inside=lib_d))
+
+    out = {}
+    for name, rows in timed.items():
+        log(f"{name}: {n_checks if name == 'dense_warp_batch' else len(rows)} "
+            f"checks, valid equal, NaN in the same places, max abs err "
+            f"{worst[name]:.3e} (tol {DENSE_WARP_ATOL})")
+        for r in rows:
+            log(f"{name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']})"
+                + (f", F.grid_sample {r['library_ms']:.4f} ms (differs by "
+                   f"{r['grid_sample_max_abs_diff_inside']:.2e} inside the image)"
+                   if r["library_ms"] is not None else ""))
+        out[name] = dict(rows[0], max_abs_err=worst[name],
+                         max_rel_err=None, by_shape=rows)
+    return out
+
 
 # ----------------------------------------------------------------------------
 # phase 3: decoder
@@ -509,17 +703,20 @@ def phase_decoder(dev):
 # phases 4 and 5: end to end
 # ----------------------------------------------------------------------------
 
-def launch_counts():
+def _kernel_modules():
+    from deepfactors_tpu_torch.ops.kernels import dense_warp as dw
     from deepfactors_tpu_torch.ops.kernels import sfm_error as se
     from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
-    return {**sg.LAUNCHES, **se.LAUNCHES}
+    return sg, se, dw
+
+
+def launch_counts():
+    return {k: v for m in _kernel_modules() for k, v in m.LAUNCHES.items()}
 
 
 def reset_launch_counts():
-    from deepfactors_tpu_torch.ops.kernels import sfm_error as se
-    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
-    sg.reset_launch_counts()
-    se.reset_launch_counts()
+    for m in _kernel_modules():
+        m.reset_launch_counts()
 
 
 def stat(v):
@@ -718,7 +915,268 @@ def phase_long_run(dev, decoder):
         f"{np.median([f['residual'] / f['inliers'] for f in kf_kf]):.3e}")
     log(f"long run warp: keyframe {kf} into the last frame, {int(inl)} of "
         f"{H * W} pixels valid, mean squared residual {res / inl:.3e}")
-    assert all(v > 0 for v in launches.values()), f"kernel not launched: {launches}"
+    path = ("se3_gram_batch", "sfm_gram_batch", "sfm_error_batch",
+            "se3_warp_batch")
+    assert all(launches[k] > 0 for k in path), f"kernel not launched: {launches}"
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 6: the parallel/ entry points on one card
+# ----------------------------------------------------------------------------
+
+def _relative_to_first(poses, dev):
+    """Host SE3 poses as a batched device SE3 relative to the first."""
+    import torch
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+    p = SE3(torch.tensor(np.stack([x.q for x in poses]), device=dev),
+            torch.tensor(np.stack([x.t for x in poses]), device=dev))
+    first = se3m.index(p, slice(0, 1))
+    return se3m.mul(se3m.inverse(first), p)
+
+
+def _smoke_camera():
+    from deepfactors_tpu_torch.geometry.camera import PinholeCamera
+    return PinholeCamera.create(fx=220.0, fy=220.0, u0=W / 2, v0=H / 2,
+                                width=W, height=H)
+
+
+def phase_dryrun(dev):
+    """6a: the dry-run BA step through its entry point, then its system
+    (H, b) through the kernel against the same system with
+    ``dense_warp_batch`` replaced by its plain twin, on the card, at poses
+    moved off the identity so that no block is zero."""
+    import torch
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+    from deepfactors_tpu_torch.ops.kernels import dense_warp as dw
+    from deepfactors_tpu_torch.parallel import dist_ba, dryrun
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q, t, c = dryrun.dryrun_single(dev)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    K, CS = dryrun.K, dryrun.CS
+    assert q.shape == (K, 4) and t.shape == (K, 3) and c.shape == (K, CS)
+    assert np.abs(t).max() > 1e-4, "the step did not move a pose"
+    launches = launch_counts()
+    assert launches["dense_warp_batch"] == 1, launches
+
+    cam, params, fd, q0, t0_, c0, active = dryrun.dryrun_problem(dev)
+    moved = perturb(SE3(q0, t0_), seed=61)
+    g = torch.Generator(device="cpu").manual_seed(62)
+    codes = (0.1 * torch.randn((K, CS), generator=g)).to(dev)
+    system = lambda: dist_ba.local_system(moved.q, moved.t, codes, fd, K, CS,
+                                          cam, params)
+    Hk, bk, sk = system()
+    kernel = dw.dense_warp_batch
+    dw.dense_warp_batch = dw.dense_warp_batch_plain
+    try:
+        Hp, bp, sp = system()
+    finally:
+        dw.dense_warp_batch = kernel
+    torch.cuda.synchronize()
+    assert launch_counts()["dense_warp_batch"] == 2, launch_counts()
+    Dp = 6 * K
+    blocks = {"H pose-pose": (Hk[:Dp, :Dp], Hp[:Dp, :Dp]),
+              "H pose-code": (Hk[:Dp, Dp:], Hp[:Dp, Dp:]),
+              "H code-code": (Hk[Dp:, Dp:], Hp[Dp:, Dp:]),
+              "b pose": (bk[:Dp], bp[:Dp]), "b code": (bk[Dp:], bp[Dp:]),
+              "residual": (sk[:1], sp[:1])}
+    errs = {}
+    for name, (a, b) in blocks.items():
+        assert torch.isfinite(a).all() and float(b.abs().max()) > 0, name
+        errs[name] = float((a - b).abs().max() / b.abs().max())
+        assert errs[name] < DRYRUN_TOL, f"dry run {name}: {errs[name]}"
+    assert float(sk[1]) == float(sp[1]) > 0, "inlier counts differ"
+    log(f"dry run (K={K}, CS={CS}, {fd.src.shape[0]} factors, {H}x{W}): one "
+        f"step {step_ms:.1f} ms with the problem's set-up, max |dt| "
+        f"{np.abs(t).max():.3e}; kernel vs twins per block "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tol {DRYRUN_TOL}), inliers equal")
+    return launches           # the entry point's, without the comparison's
+
+
+def large_map_setup(dev, decoder):
+    """The large map of ``LARGE``: 32 decoded keyframes of the room orbit,
+    links to the last four both ways, perturbed poses."""
+    import torch
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.io import synth
+    from deepfactors_tpu_torch.ops import image as ip
+    from deepfactors_tpu_torch.parallel import large_map
+
+    c = LARGE
+    K, CS = c["K"], decoder.cfg.code_size
+    cam = _smoke_camera()
+    scene = synth.random_room(c["scene_seed"], n_boxes=3)
+    poses = synth.orbit_trajectory(SEQ_LEN, sweep=3.2 * np.pi)
+    poses = poses[::c["stride"]][:K]
+    images = torch.tensor(np.stack(synth.render_sequence(
+        scene, cam, poses, H, W, device=dev)), device=dev)
+    prx0, jac, std = [], [], []
+    for im in images:
+        out = decoder.raw_outputs_T(im)
+        # the predicted code folded into the zero-code proximity, as the
+        # mapper does at keyframe build
+        prx0.append(out["prx0"][0] + torch.einsum(
+            "chw,c->hw", out["jac"][0], out["code_pred"]))
+        jac.append(out["jac"][0].permute(1, 2, 0))
+        std.append(out["stdev"][0])
+    true = _relative_to_first(poses, dev)
+    poses0 = se3m.retract(true, torch.tensor(large_map_noise(), device=dev))
+    links = large_map_links()
+    problem = large_map.build_problem(
+        images, torch.stack(prx0), torch.stack(jac), torch.stack(std),
+        ip.sobel_gradients(images), poses0,
+        torch.zeros((K, CS), device=dev), links)
+    assert problem.fd.src.shape[0] == 2 * len(links)
+    return dict(cam=cam, problem=problem, true=true, poses0=poses0)
+
+
+def large_map_run(setup):
+    """6b: ``LargeMapBA`` on the large map, then one ``sfm_step`` on one of
+    its factors (bilinear_warp_planes) against the same factor of
+    ``sfm_step_batch`` (dense_warp_batch)."""
+    import torch
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.ops import dense_sfm as ds
+    from deepfactors_tpu_torch.parallel import large_map
+
+    c = LARGE
+    cam, problem, true, poses0 = (setup[k] for k in ("cam", "problem", "true",
+                                                     "poses0"))
+    K, CS = problem.codes.shape
+    P = problem.fd.src.shape[0]
+    params = ds.SfmParams(**LARGE_SFM)
+    ba = large_map.LargeMapBA(K, CS, cam, params)
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est, codes, hist = ba.run(problem, iters=c["iters"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    chunk = ds._JT_CHUNK_BYTES // ((12 + CS) * H * W * 4)
+    n_chunks = -(-P // chunk)
+    assert launches["dense_warp_batch"] == c["iters"] * n_chunks, launches
+    hist = torch.stack(hist).cpu().numpy()
+    err = lambda p: se3m.local(true, p)[:, :3].norm(dim=-1).cpu().numpy()
+    e0, e1 = err(poses0), err(est)
+    rmse0, rmse1 = (float(np.sqrt((e ** 2).mean())) for e in (e0, e1))
+    rpi = hist[:, 0] / hist[:, 1]
+    # the decoder's depth carries a scale bias that a monocular BA cannot
+    # see: the error left after one scale factor on the translations
+    scale = float((est.t * true.t).sum() / (est.t * est.t).sum())
+    rmse_s = float((scale * est.t - true.t).pow(2).sum(dim=1).mean().sqrt())
+    assert torch.isfinite(est.q).all() and torch.isfinite(est.t).all()
+    assert torch.isfinite(codes).all() and np.isfinite(hist).all()
+    log(f"large map: K={K}, {P} factors ({n_chunks} chunks of <= {chunk}), "
+        f"{c['iters']} iterations in {wall:.2f} s "
+        f"({1e3 * wall / c['iters']:.1f} ms each), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"large map: keyframe translation error rmse {rmse0:.4f} -> "
+        f"{rmse1:.4f} m, max {e0.max():.4f} -> {e1.max():.4f} m; after one "
+        f"scale factor {scale:.4f} on the translations {rmse_s:.4f} m; residual per "
+        f"inlier by iteration {[round(float(x), 6) for x in rpi]}; inliers "
+        f"{int(hist[0, 1])} -> {int(hist[-1, 1])}; max |code| "
+        f"{float(codes.abs().max()):.3f}")
+    assert rpi[-1] < LARGE_RPI_BOUND, f"residual per inlier {rpi[-1]}"
+    assert rmse1 < LARGE_ERR_BOUND_M, f"keyframe error {rmse1} m"
+
+    # one factor through sfm_step (bilinear_warp_planes) and through
+    # sfm_step_batch (dense_warp_batch): two kernels, one system
+    fd = problem.fd
+    p = P // 2
+    s, d = int(fd.src[p]), int(fd.dst[p])
+    code0 = codes[s]
+    dpt0 = params.avg_dpt / (fd.prx0[p] + torch.einsum(
+        "hwc,c->hw", fd.jac0[p], code0)) - params.avg_dpt
+    one = slice(p, p + 1)
+    before = launch_counts()
+    sys1, valid0 = ds.sfm_step(
+        se3m.index(est, s), se3m.index(est, d), code0, cam, fd.img0[p],
+        fd.img1[p], dpt0, fd.std0[p], fd.jac0[p], fd.grad1[p], params)
+    sysb = ds.sfm_step_batch(
+        se3m.index(est, slice(s, s + 1)), se3m.index(est, slice(d, d + 1)),
+        code0[None], cam, fd.img0[one], fd.img1[one], dpt0[None],
+        fd.std0[one], fd.jac0[one], fd.grad1[one], params)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["bilinear_warp_planes"] - before["bilinear_warp_planes"] == 1
+    assert after["dense_warp_batch"] - before["dense_warp_batch"] == 1
+    assert float(sys1.inliers) == float(sysb.inliers[0]) == float(valid0.sum()) > 0
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    e_jtj, e_jtr = rel(sys1.JtJ, sysb.JtJ[0]), rel(sys1.Jtr, sysb.Jtr[0])
+    assert e_jtj < KERNEL_TOL and e_jtr < KERNEL_TOL, (e_jtj, e_jtr)
+    log(f"sfm_step (bilinear_warp_planes) vs sfm_step_batch "
+        f"(dense_warp_batch) on factor {s}->{d}: JtJ {e_jtj:.2e}, Jtr "
+        f"{e_jtr:.2e} (tol {KERNEL_TOL}), {int(sys1.inliers)} inliers")
+    # the BA run's launches and sfm_step's one, without the comparison's
+    return dict(launches, bilinear_warp_planes=1)
+
+
+def odometry_setup(dev):
+    """The rooms of ``ODO`` rendered along the slow orbit: frames
+    [n + 1, S, H, W], the first frames' true depth, the true translations."""
+    import torch
+    from deepfactors_tpu_torch.io import synth
+
+    c = ODO
+    cam = _smoke_camera()
+    poses = synth.orbit_trajectory(SEQ_LEN, sweep=c["sweep"])[:c["frames"] + 1]
+    true_t = _relative_to_first(poses, dev).t
+    frames, depth0 = [], []
+    for seed in c["scene_seeds"]:
+        imgs, dpts = synth.render_sequence(
+            synth.random_room(seed, n_boxes=3), cam, poses, H, W,
+            with_depth=True, device=dev)
+        frames.append(np.stack(imgs))
+        depth0.append(dpts[0])
+    return dict(cam=cam, true_t=true_t,
+                frames=torch.tensor(np.stack(frames, axis=1), device=dev),
+                depth0=torch.tensor(np.stack(depth0), device=dev))
+
+
+def odometry_run(setup):
+    """6c: ``BatchedOdometry`` over the rooms of ``ODO`` in lockstep."""
+    import torch
+    from deepfactors_tpu_torch.parallel import multi_seq
+
+    c = ODO
+    cam, true_t, frames = setup["cam"], setup["true_t"], setup["frames"]
+    n, S = frames.shape[0] - 1, frames.shape[1]
+    odo = multi_seq.BatchedOdometry(
+        cam, levels=c["levels"], iters_per_level=c["iters_per_level"],
+        huber=c["huber"], kf_dist_threshold=c["kf_dist"])
+    reset_launch_counts()
+    state = odo.init(frames[0], setup["depth0"])
+    errs, switches, ms = [], [], []
+    for i in range(1, n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, pose_wc, sw = odo.process(state, frames[i])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        assert torch.isfinite(pose_wc.q).all() and torch.isfinite(pose_wc.t).all()
+        errs.append((pose_wc.t - true_t[i]).norm(dim=-1))
+        switches.append(sw)
+    launches = launch_counts()
+    assert launches["se3_gram_batch"] == n * sum(c["iters_per_level"]), launches
+    errs = torch.stack(errs)
+    rmse = errs.pow(2).mean(dim=0).sqrt().cpu().numpy()
+    n_sw = torch.stack(switches).sum(dim=0).cpu().numpy()
+    path = float((true_t[1:] - true_t[:-1]).norm(dim=-1).sum())
+    r4 = lambda a: [round(float(x), 4) for x in a]
+    log(f"odometry: {S} scenes x {n} frames, {stat(ms)} per lockstep frame; "
+        f"translation rmse per scene {r4(rmse)} m over a path of {path:.3f} m, "
+        f"final error {r4(errs[-1])} m, keyframe switches per scene "
+        f"{n_sw.tolist()}")
+    assert (n_sw >= 1).all(), "a scene never switched its keyframe"
+    assert rmse.max() < ODO_RMSE_BOUND_M, f"odometry rmse {rmse}"
     return launches
 
 
@@ -755,6 +1213,11 @@ def main():
     decoder = phase_decoder(dev)
     launches_e2e = phase_e2e(dev, decoder)
     launches = phase_long_run(dev, decoder)
+    parallel = {"dry_run": phase_dryrun(dev),
+                "large_map": large_map_run(large_map_setup(dev, decoder)),
+                "odometry": odometry_run(odometry_setup(dev))}
+    par_total = {k: sum(p[k] for p in parallel.values()) for k in launches}
+    assert par_total["dense_warp_batch"] > 0 < par_total["bilinear_warp_planes"]
 
     meta = {
         "se3_gram_batch": ("deepfactors_tpu_torch/csrc/se3_gram.cu",
@@ -765,21 +1228,30 @@ def main():
                             "deepfactors_tpu/ops/pallas/sfm_kernel.py:783"),
         "se3_warp_batch": ("deepfactors_tpu_torch/csrc/sfm_error.cu",
                            "deepfactors_tpu/ops/pallas/sfm_kernel.py:874"),
+        "dense_warp_batch": ("deepfactors_tpu_torch/csrc/dense_warp.cu",
+                             "deepfactors_tpu/ops/pallas/warp_kernel.py:280"),
+        "bilinear_warp_planes": ("deepfactors_tpu_torch/csrc/dense_warp.cu",
+                                 "deepfactors_tpu/ops/pallas/warp_kernel.py:125"),
     }
     rows = []
     for name, (src, rep) in meta.items():
         r = kern[name]
-        # launches: the long run (phase 5), which drives all four kernels;
-        # launches_by_path also gives the 60-frame run's (phase 4)
+        # launches: the long run (phase 5) for the four kernels it drives,
+        # the parallel entry points (phase 6) for the two it does not;
+        # launches_by_path gives every path's count
+        by_path = {"e2e_60_frames": launches_e2e[name],
+                   "long_run": launches[name],
+                   **{k: v[name] for k, v in parallel.items()}}
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": launches[name],
-                     "launches_by_path": {"e2e_60_frames": launches_e2e[name],
-                                          "long_run": launches[name]},
+                     "replaces": rep,
+                     "launches": launches[name] or par_total[name],
+                     "launches_by_path": by_path,
                      "max_abs_err": r["max_abs_err"],
                      "max_rel_err": r["max_rel_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": None, "shape": r["shape"]})
+                     "library_ms": r.get("library_ms"), "shape": r["shape"],
+                     **{k: r[k] for k in ("by_shape", "p8_sampled") if k in r}})
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

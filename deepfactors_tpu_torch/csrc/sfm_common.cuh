@@ -80,14 +80,17 @@ struct Corners {
 
 // Bilinear corners with the kernel's edge convention: the interpolation
 // weight is zeroed at the clamped last row/column (image.bilinear_sample_grad).
+// The floor is clamped as a float, before the cast: a coordinate beyond
+// int's range, or NaN (fmaxf returns its other argument), has no defined
+// conversion, and dense_warp.cu samples at unguarded coordinates.
 __device__ __forceinline__ Corners corners(float x, float y, int H, int W) {
   Corners c;
   const float x0f = floorf(x);
   const float y0f = floorf(y);
   c.wx = (x0f >= (float)(W - 1)) ? 0.0f : x - x0f;
   c.wy = (y0f >= (float)(H - 1)) ? 0.0f : y - y0f;
-  const int x0 = min(max((int)x0f, 0), W - 1);
-  const int y0 = min(max((int)y0f, 0), H - 1);
+  const int x0 = (int)fminf(fmaxf(x0f, 0.0f), (float)(W - 1));
+  const int y0 = (int)fminf(fmaxf(y0f, 0.0f), (float)(H - 1));
   const int x1 = min(x0 + 1, W - 1);
   const int y1 = min(y0 + 1, H - 1);
   c.i00 = y0 * W + x0;

@@ -7,6 +7,13 @@ CPU), then expanded to the reference's 44-dim systems by
 ``system_from_gram``; ``photometric_error_batch`` evaluates residuals only,
 in one ``sfm_error_batch`` call. The JAX package's one-hot ``take_rows``
 gathers are plain indexing here.
+
+The JAX package's ``photometric_batch`` also has an unfused branch
+(``dense_sfm.sfm_step_batch`` on gathered rows) that it takes only where an
+image size fails the TPU kernels' tile rule. The CUDA Gram kernels have no
+such rule, so ``photometric_batch`` here is always fused and that branch has
+no counterpart; the unfused linearisation is reached through
+``parallel/dist_ba``.
 """
 from __future__ import annotations
 
@@ -77,6 +84,25 @@ def photometric_batch(state: ms.MapState, src: Tensor, dst: Tensor,
         lvl.prx0 if depth_from_code else lvl.dpt, lvl.jac, lvl.img, gx, gy,
         active=active, grad_mode=grad_mode, depth_from_code=depth_from_code,
         loss=loss)
+
+
+def depth_prior_batch(state: ms.MapState, tgt_pyr, sigma: float,
+                      avg_dpt: float) -> FactorBatch:
+    """Code-only GN systems tying each keyframe's code to a target depth
+    pyramid (``tgt_pyr``: per level [K, h, w]), summed over all levels and
+    scaled by 1/sigma^2 (DepthPriorFactor::linearize,
+    depth_prior_factor.cpp:83-123; step math ``ds.depth_align_step_T``).
+    Returns [K, CS, CS] / [K, CS] blocks addressed at each keyframe's code
+    slot; residual and inliers are unscaled."""
+    total = None
+    for tgt, lvl in zip(tgt_pyr, state.levels):
+        sys = ds.depth_align_step_T(state.code, tgt, lvl.prx0, lvl.jac,
+                                    avg_dpt)
+        total = sys if total is None else ds.SystemResult(
+            *(a + b for a, b in zip(total, sys)))
+    w = 1.0 / (sigma * sigma)
+    return FactorBatch(total.JtJ * w, total.Jtr * w, total.residual,
+                       total.inliers)
 
 
 def photometric_error_batch(state: ms.MapState, src: Tensor, dst: Tensor,

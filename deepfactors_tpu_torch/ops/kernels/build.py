@@ -22,7 +22,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = ("se3_gram.cu", "sfm_gram.cu", "sfm_error.cu")
+SOURCES = ("se3_gram.cu", "sfm_gram.cu", "sfm_error.cu", "dense_warp.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no implicit FMA contraction: each expression rounds op by op like the

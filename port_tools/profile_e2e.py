@@ -1,17 +1,19 @@
 """Where the time goes in the port's end-to-end run on the GPU.
 
-Runs one of chip_smoke.py's end-to-end phases (the sequential facade on the
-synthetic room orbit at 192x256 with the room256_32v4 decoder: 60 frames in
-a window of 32 keyframes, or with ``--long`` the 180 frames in a window of
-16 that evict, with the map dump and warp render after them) once to warm
-up, then again under ``torch.profiler`` with CUDA activity only, and
-prints:
+Runs one of chip_smoke.py's full-width phases at 192x256 with the
+room256_32v4 decoder (the sequential facade on the synthetic room orbit: 60
+frames in a window of 32 keyframes, or with ``--long`` the 180 frames in a
+window of 16 that evict, with the map dump and warp render after them; with
+``--phase large_map`` the 10 BA iterations over 32 keyframes and 236
+factors, with ``--phase odometry`` the 30 lockstep frames over 8 rooms,
+each without its set-up) once to warm up, then again under
+``torch.profiler`` with CUDA activity only, and prints:
   - the run's wall time and the device's busy time (the union of all
     kernel and copy intervals), hence the device's idle share;
   - the device time by kernel name (count, total, mean), largest first.
 
 Run from the repository root on a machine with a GPU:
-    python3 port_tools/profile_e2e.py [--long] [--top 25] [--json PATH]
+    python3 port_tools/profile_e2e.py [--long | --phase NAME] [--top 25] [--json PATH]
 ``--json`` also writes the numbers to PATH.
 """
 import argparse
@@ -44,6 +46,8 @@ def main():
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--json", default=None)
     ap.add_argument("--long", action="store_true")
+    ap.add_argument("--phase", default=None,
+                    choices=("large_map", "odometry"))
     args = ap.parse_args()
 
     import torch
@@ -62,12 +66,21 @@ def main():
     build.build_all()
     dec = load_decoder(os.path.join(ROOT, "data", "nets", "room256_32v4"),
                        device="cuda")
-    phase = cs.phase_long_run if args.long else cs.phase_e2e
-    phase("cuda", dec)                              # warm-up run
+    name = args.phase or ("long" if args.long else "e2e")
+    if name == "large_map":
+        setup = cs.large_map_setup("cuda", dec)
+        phase = lambda: cs.large_map_run(setup)
+    elif name == "odometry":
+        setup = cs.odometry_setup("cuda")
+        phase = lambda: cs.odometry_run(setup)
+    else:
+        run = cs.phase_long_run if name == "long" else cs.phase_e2e
+        phase = lambda: run("cuda", dec)
+    phase()                                         # warm-up run
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        phase("cuda", dec)
+        phase()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -88,7 +101,7 @@ def main():
         "kernels": [{"name": n[:120], "count": c, "total_ms": t / 1e3,
                      "mean_us": t / c} for n, (c, t) in rows[:args.top]],
     }
-    print(f"profiled e2e: wall {out['wall_ms']:.1f} ms, device busy "
+    print(f"profiled {name}: wall {out['wall_ms']:.1f} ms, device busy "
           f"{out['device_busy_ms']:.1f} ms, idle share "
           f"{out['device_idle_share']:.4f}, {len(dev_events)} device events")
     for k in out["kernels"]:

@@ -12,6 +12,7 @@ import torch
 from deepfactors_tpu_torch.geometry import se3 as tse3
 from deepfactors_tpu_torch.geometry.camera import PinholeCamera
 from deepfactors_tpu_torch.ops import dense_sfm as tds
+from deepfactors_tpu_torch.ops.kernels import dense_warp as tdw
 from deepfactors_tpu_torch.ops.kernels import sfm_gram as tsg
 
 torch.set_num_threads(2)
@@ -36,7 +37,7 @@ for n in names:
 import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in Blocker.BLOCKED]
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -45,7 +46,12 @@ def test_port_and_chip_smoke_import_without_jax():
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip().splitlines()[-1]) >= 25   # every module seen
+    seen = r.stdout.strip().splitlines()[-1].split()
+    assert len(seen) >= 31                                # every module seen
+    for mod in ("ops.kernels.dense_warp", "ops.kernels.sfm_error",
+                "parallel.dist_ba", "parallel.large_map",
+                "parallel.multi_seq", "parallel.dryrun"):
+        assert "deepfactors_tpu_torch." + mod in seen, mod
 
 
 def test_no_source_file_names_jax():
@@ -82,5 +88,11 @@ def test_cpu_tensors_never_launch_a_kernel():
                             grad_mode="interp")
     grad = torch.stack([img[1], img[1]], dim=-1)
     tds.se3_step(tse3.identity(device="cpu"), cam, img[0], img[1], dpt[0], grad, 0.3)
+    tdw.reset_launch_counts()
+    warped = tdw.dense_warp_batch(tdw.make_warp_params(pose, cam, 1, 0.0), dpt,
+                                  img, img, img)
+    planes = tdw.bilinear_warp_planes(img, warped[3][0], warped[4][0])
     assert G.shape == (2, 8, 8) and G2.shape == (2, 12, 12)
+    assert len(warped) == 7 and planes.shape == (2, H, W)
     assert tsg.LAUNCHES == {"se3_gram_batch": 0, "sfm_gram_batch": 0}
+    assert tdw.LAUNCHES == {"dense_warp_batch": 0, "bilinear_warp_planes": 0}
