@@ -7,7 +7,11 @@ Phases, in order (any failure exits non-zero before the final line):
      path's shapes (192x256, 96x128, 48x64 levels, K = 32 keyframe pools):
      sfm_gram_batch at P = 128 with half the slots inactive, CS 32 and 8,
      Huber/Tukey, from-prox on/off, interp/sampled; se3_gram_batch at
-     P = 1 and 8; sfm_error_batch and se3_warp_batch at P = 1, 2 and 64
+     P = 1 and 8; both again at sizes no tile divides (90x122, 89x121, CS
+     64 and 5), at P = 1, with every factor inactive, and launched
+     repeatedly (the same bits, also after another P and size), beside the
+     time of an empty launch; sfm_error_batch and se3_warp_batch at P = 1,
+     2 and 64
      (half the slots inactive); dense_warp_batch at P = 16 and 64 and
      bilinear_warp_planes at C = 3. Times kernel and twin with CUDA events.
   3. the room256_32v4 decoder forward at 192x256 on the card, held against
@@ -92,6 +96,26 @@ DECODER_TOL = 2e-2
 DENSE_WARP_ATOL = 1e-6
 H, W = 192, 256
 N_FRAMES = 60
+# Device milliseconds of the two Gram kernels' first design (two launches
+# each: strip partials, then a reduce pass) at the shapes timed below, at
+# 192x256 / 96x128 / 48x64, as chip_smoke.py read them on an NVIDIA H100
+# 80GB HBM3 at 700 W before the redesign (PERF.md section 6). Constants,
+# not measured in this run: they appear only in the log lines of phase 2,
+# labelled so, never in the kernels line. The two designs timed side by
+# side in one run: port_tools/compare_gram_designs.py --prev.
+PREV_MS = {"sfm_gram_batch": (0.937, 0.253, 0.0885),
+           "se3_gram_batch": (0.0173, 0.0099, 0.0099),
+           "se3_gram_batch_p8_sampled": (0.0186, 0.0105, 0.0108)}
+# Sizes that no tile divides: the first keeps 16-byte aligned planes (H*W a
+# multiple of 4: the bulk-copy path with a ragged last tile), the second does
+# not (the 4-byte cp.async path).
+ODD_HW = (90, 122)
+ODD_HW_UNALIGNED = (89, 121)
+# Batch sizes checked against the twins besides the timed ones: the factor
+# buckets of the mapper (pool of 128: 8, 64, 128; pool of 64: 8, 32, 64) and
+# tracking batches around the odometry's eight scenes.
+MAPPER_BUCKETS = (8, 32, 64)
+SE3_EXTRA_P = (3, 16)
 SEQ_LEN = 300
 
 # Phase 6. port_tools/jax_parallel_reference.py imports these constants and
@@ -275,6 +299,10 @@ def phase_kernels(dev):
     results = {}
     worst = {n: dict.fromkeys(("jtj", "jtr", "res", "inl", "g", "abs"), 0.0)
              for n in ("se3_gram_batch", "sfm_gram_batch")}
+    # the floor under any single launch: a kernel that does nothing
+    empty_ms = cuda_ms(lambda: sg.empty_launch(dev), iters=200)
+    log(f"empty launch: {empty_ms:.5f} ms a launch (the floor of a "
+        f"one-launch kernel on this card)")
 
     def record(name, errs, Gp, DB):
         w = worst[name]
@@ -350,6 +378,7 @@ def phase_kernels(dev):
                             hw = "x".join(map(str, lv["img"].shape[1:]))
                             results.setdefault("sfm_gram_batch", []).append(dict(
                                 ms=ms_k, plain_ms=ms_p, bound_ms=bms,
+                                first_design=PREV_MS["sfm_gram_batch"][l],
                                 bound_by=by, shape=f"P={P} ({int(on.sum())} active) "
                                 f"CS={CS} {hw} {loss} from-prox interp"))
     summary("sfm_gram_batch", n_checks)
@@ -386,6 +415,7 @@ def phase_kernels(dev):
                     hw = "x".join(map(str, lv["img"].shape[1:]))
                     results.setdefault("se3_gram_batch", []).append(dict(
                         ms=ms_k, plain_ms=ms_p, bound_ms=bms, bound_by=by,
+                        first_design=PREV_MS["se3_gram_batch"][l],
                         shape=f"P=1 {hw} interp"))
                 if P == 8 and gm == "sampled":
                     # the multi-scene odometry's shape: one factor a scene
@@ -398,17 +428,27 @@ def phase_kernels(dev):
                     p8_sampled.append(dict(
                         ms=cuda_ms(lambda: sg.se3_gram_batch(*args, **kw), iters=100),
                         plain_ms=cuda_ms(lambda: sg.se3_gram_batch_plain(*args, **kw)),
-                        bound_ms=bms, bound_by=by, shape=f"P=8 {hw} sampled"))
+                        bound_ms=bms, bound_by=by,
+                        first_design=PREV_MS["se3_gram_batch_p8_sampled"][l],
+                        shape=f"P=8 {hw} sampled"))
     summary("se3_gram_batch", n_checks)
-    for r in p8_sampled:
-        log(f"se3_gram_batch at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']})")
-    for name, per_level in results.items():
-        for r in per_level:
-            log(f"{name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})")
+    n_extra = gram_edge_checks(dev, K, cams, levels, q, t, record)
+    log(f"Gram kernels, edge cases: {n_extra} more checks against the twins "
+        f"at {ODD_HW[0]}x{ODD_HW[1]} (CS 64, 32, 8) and "
+        f"{ODD_HW_UNALIGNED[0]}x{ODD_HW_UNALIGNED[1]} (CS 32, 5), at the "
+        f"mapper's batch sizes P = {MAPPER_BUCKETS} and tracking batches "
+        f"P = {SE3_EXTRA_P} at the three levels, P = 1, all "
+        f"factors inactive (G exactly 0); repeated launches bit-identical, also "
+        f"after a launch at another P and size")
+    timed = ([("se3_gram_batch", r) for r in p8_sampled]
+             + [(name, r) for name, v in results.items() for r in v])
+    for name, r in timed:
+        # the constant leaves the row here: every number of the kernels line
+        # but the bound is one this run measured
+        log(f"{name} at {r['shape']}: kernel {r['ms']:.4f} ms (first design "
+            f"{r.pop('first_design'):.4f} ms, a constant from an earlier "
+            f"run), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
+            f"ms ({r['bound_by']})")
     # the kernels line reports the finest level, where the main path spends
     # most of each kernel's time
     out = {name: dict(per_level[0]) for name, per_level in results.items()}
@@ -417,9 +457,149 @@ def phase_kernels(dev):
         r["max_abs_err"] = w["abs"]
         r["max_rel_err"] = {k: w[k] for k in ("jtj", "jtr", "res", "g")}
     out["se3_gram_batch"]["p8_sampled"] = p8_sampled
+    out["se3_gram_batch"]["empty_launch_ms"] = empty_ms
+    for name, per_level in results.items():
+        out[name]["by_level"] = per_level
     out.update(phase_error_kernels(dev, K, cams, levels, q, t))
     out.update(phase_warp_kernels(dev, K, cams, levels, q, t))
     return out
+
+
+def gram_edge_checks(dev, K, cams, levels, q, t, record):
+    """The two Gram kernels where a tiling or a ticket could go wrong: planes
+    cropped to ODD_HW and ODD_HW_UNALIGNED (no multiple of the pixel tile in
+    either direction) with CS 64, 32, 8 and 5; P = 1; every factor
+    inactive; three launches on the same inputs, and one after a launch at
+    another P and size, must give the same bits (a ticket that was not reset
+    would not). Returns the number of kernel-vs-twin checks."""
+    import torch
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+    from deepfactors_tpu_torch.geometry.warping import depth_to_prox
+    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
+
+    def cropped(hw):
+        return {k: levels[1][k][:, :hw[0], :hw[1]].contiguous()
+                for k in ("img", "dpt", "gx", "gy")}
+
+    crop, crop_u = cropped(ODD_HW), cropped(ODD_HW_UNALIGNED)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    n = 0
+
+    def factors(P, seed, noise_seed, jacobians):
+        src, dst, active = factor_set(K, P, dev, seed=seed)
+        sl, dl = src.long(), dst.long()
+        a, b = SE3(q[dl], t[dl]), SE3(q[sl], t[sl])
+        pose = (se3m.relative_pose_jacobians(a, b)[0] if jacobians
+                else se3m.relative_pose(a, b))
+        return src, dst, active, perturb(pose, seed=noise_seed)
+
+    def sfm_case(P, planes, cam, CS, loss, gm, from_prox, active=None):
+        """(args, kw) of one sfm_gram_batch call on ``planes``."""
+        src, dst, act, pose = factors(P, 1, 3, True)
+        jac = (0.01 * torch.randn((K, CS) + planes["img"].shape[1:],
+                                  generator=g)).to(dev)
+        codes_k = (0.1 * torch.randn((K, CS), generator=g)).to(dev)
+        prx0 = (depth_to_prox(planes["dpt"], 2.0)
+                - torch.einsum("kchw,kc->khw", jac, codes_k)).contiguous()
+        kp = sg.make_sfm_params(pose, cam, 2, 0.0,
+                                0.1 if loss == "tukey" else 0.3, 2.0)
+        args = (kp, src, dst, planes["img"],
+                prx0 if from_prox else planes["dpt"], jac, planes["img"],
+                planes["gx"], planes["gy"])
+        kw = dict(active=act if active is None else active,
+                  codes=codes_k[src.long()].contiguous() if from_prox else None,
+                  grad_mode=gm, loss=loss)
+        return args, kw
+
+    def se3_case(P, planes, cam, gm, active=None):
+        src, dst, _, pose = factors(P, 2, 4 + P, False)
+        kp = sg.make_sfm_params(pose, cam, 1, 0.0, 0.3, 2.0)
+        if active is None:
+            active = torch.ones(P, dtype=torch.int32, device=dev)
+        return ((kp, src, dst, planes["img"], planes["dpt"], planes["img"],
+                 planes["gx"], planes["gy"]), dict(active=active, grad_mode=gm))
+
+    def against_twin(name, args, kw, DB):
+        kernel, twin = ((sg.sfm_gram_batch, sg.sfm_gram_batch_plain)
+                        if name == "sfm_gram_batch" else
+                        (sg.se3_gram_batch, sg.se3_gram_batch_plain))
+        Gk, Gp = kernel(*args, **kw), twin(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(Gk).all(), name
+        assert bool((Gk[kw["active"] == 0] == 0).all()), \
+            f"{name}: an inactive factor is not zero"
+        assert torch.equal(Gk, Gk.transpose(1, 2)), f"{name}: G not symmetric"
+        record(name, block_errs(Gk, Gp, DB), Gp, DB)
+        return Gk
+
+    # a size that no tile divides, three code sizes
+    for CS in (64, 32, 8):
+        for loss, gm, from_prox in (("huber", "interp", True),
+                                    ("tukey", "sampled", False)):
+            args, kw = sfm_case(128, crop, cams[1], CS, loss, gm, from_prox)
+            against_twin("sfm_gram_batch", args, kw, 6 + CS)
+            n += 1
+    args, kw = sfm_case(128, crop_u, cams[1], 32, "huber", "interp", True)
+    against_twin("sfm_gram_batch", args, kw, 38)
+    args, kw = sfm_case(128, crop_u, cams[1], 5, "tukey", "sampled", False)
+    against_twin("sfm_gram_batch", args, kw, 11)
+    n += 2
+    for P in (1, 8):
+        for gm in ("interp", "sampled"):
+            against_twin("se3_gram_batch", *se3_case(P, crop, cams[1], gm), 6)
+            n += 1
+    against_twin("se3_gram_batch", *se3_case(8, crop_u, cams[1], "sampled"), 6)
+    n += 1
+    # the batch sizes the mapper's buckets give sfm_gram_batch on the main
+    # paths besides 128 (8 and 64 with a pool of 128 factors; 8, 32 and 64
+    # with the long run's pool of 64): each has a strip plan of its own
+    for P in MAPPER_BUCKETS:
+        for l, lv in enumerate(levels):
+            args, kw = sfm_case(P, lv, cams[l], 32,
+                                "tukey" if l == 0 else "huber", "interp", True)
+            against_twin("sfm_gram_batch", args, kw, 38)
+            n += 1
+    # se3_gram_batch with 1, 2, 3, 6 and 8 pixels a thread: the batch sizes
+    # between one factor and more scenes than the odometry's eight
+    for P in SE3_EXTRA_P:
+        for l, lv in enumerate(levels):
+            against_twin("se3_gram_batch", *se3_case(P, lv, cams[l], "sampled"), 6)
+            n += 1
+    # one factor; every factor inactive
+    args, kw = sfm_case(1, levels[0], cams[0], 32, "tukey", "interp", True,
+                        active=torch.ones(1, dtype=torch.int32, device=dev))
+    against_twin("sfm_gram_batch", args, kw, 38)
+    n += 1
+    off = lambda P: torch.zeros(P, dtype=torch.int32, device=dev)
+    args, kw = sfm_case(128, levels[0], cams[0], 32, "huber", "interp", True,
+                        active=off(128))
+    G0 = sg.sfm_gram_batch(*args, **kw)
+    args8, kw8 = se3_case(8, levels[0], cams[0], "sampled", active=off(8))
+    G8 = sg.se3_gram_batch(*args8, **kw8)
+    torch.cuda.synchronize()
+    assert bool((G0 == 0).all()) and bool((G8 == 0).all()), \
+        "all factors inactive: G is not zero"
+    assert bool((sg.sfm_gram_batch_plain(*args, **kw) == 0).all())
+    # repeated launches: the same bits, also after another P and size
+    main_sfm = sfm_case(128, levels[0], cams[0], 32, "tukey", "interp", True)
+    odd_sfm = sfm_case(1, crop, cams[1], 8, "huber", "sampled", False,
+                       active=torch.ones(1, dtype=torch.int32, device=dev))
+    main_se3 = se3_case(1, levels[0], cams[0], "interp")
+    odd_se3 = se3_case(8, crop, cams[1], "sampled")
+    for name, fn, main, odd in (
+            ("sfm_gram_batch", sg.sfm_gram_batch, main_sfm, odd_sfm),
+            ("se3_gram_batch", sg.se3_gram_batch, main_se3, odd_se3)):
+        first = fn(*main[0], **main[1])
+        for _ in range(2):
+            assert torch.equal(fn(*main[0], **main[1]), first), \
+                f"{name}: two launches on the same inputs differ"
+        other = fn(*odd[0], **odd[1])
+        assert torch.equal(fn(*main[0], **main[1]), first), \
+            f"{name}: differs after a launch at another P and size"
+        assert torch.equal(fn(*odd[0], **odd[1]), other), name
+    torch.cuda.synchronize()
+    return n
 
 
 def phase_error_kernels(dev, K, cams, levels, q, t):
@@ -1251,7 +1431,9 @@ def main():
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"), "shape": r["shape"],
-                     **{k: r[k] for k in ("by_shape", "p8_sampled") if k in r}})
+                     **{k: r[k] for k in ("by_level", "by_shape",
+                                          "p8_sampled", "empty_launch_ms")
+                        if k in r}})
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,18 +10,37 @@
 // "sampled" mode): 12-20 B per pixel, against ~36 FMA of Gram plus ~60 flops
 // of warp math — about 10 flop/B, far below the card's ~20 flop/B fp32
 // balance point. At P=1 and 192x256 that is 0.6 MB, 0.18 us of HBM time, so
-// a single tracking linearisation is in practice bound by launch latency.
+// a single tracking linearisation is bound by latency: the launch itself and
+// the chain depth -> projection -> four gathers of one pixel.
 //
-// Design: one block of 256 threads per (pixel strip, factor); each thread
-// keeps the 36 upper-triangle sums of its pixels in registers, so the image
-// planes are read exactly once and coalesced. The block reduces the 36 sums
-// with warp shuffles and a fixed-order pass over the warps, and writes one
-// partial Gram per strip; a second small kernel sums the strips of each
-// factor in a fixed order and mirrors the triangle. No float atomics, so the
-// result is bitwise reproducible. Inactive factors (active[p] == 0) skip all
-// work and get G = 0. fp32 throughout, no tensor cores: the per-pixel warp
-// math rounds op by op (built with --fmad=false, like the plain PyTorch
-// twin) and the Gram accumulation uses explicit fmaf().
+// Design (one launch):
+//  - The grid is sized to the card, [strips, P] blocks of 256 threads with
+//    one pixel a thread (more only when the blocks of all P factors would
+//    not be resident at once: two blocks an SM at ~100 registers a thread),
+//    so every pixel's loads are in flight together instead of one thread
+//    walking 12 pixels one after another.
+//  - Each thread keeps the 36 upper-triangle sums in registers. The block
+//    reduces them through shared memory, transposed ([sum][thread], odd row
+//    stride): seven groups of 36 threads each add a run of 37 threads'
+//    values in thread order, then 36 threads add the seven group sums in
+//    group order and write the strip's partial.
+//  - The last block of a factor to finish (an integer ticket per factor:
+//    __threadfence, atomicAdd on an int) sums the strips' partials in the
+//    same grouped fixed order, mirrors the triangle, writes G and resets
+//    the ticket. No float atomics, so the result is bitwise reproducible.
+//    The ticket buffer belongs to the wrapper, one per stream; calls on one
+//    stream are ordered, so a ticket is always 0 when a launch starts.
+//  - Inactive factors (active[p] == 0) skip all work; block 0 writes G = 0.
+//  - fp32 throughout, no tensor cores: the per-pixel warp math rounds op by
+//    op (built with --fmad=false, like the plain PyTorch twin) and the Gram
+//    accumulation uses explicit fmaf().
+//
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W limit: 7.5 / 6.9 / 6.2 us
+// at P = 1 and 192x256 / 96x128 / 48x64 (bound 0.18 / 0.04 / 0.01 us; an
+// empty launch 1.7-1.85 us; the first design of this kernel, two launches:
+// 17.2 / 9.8 / 9.8 us), 13.4 / 8.1 / 6.4 us at P = 8 with sampled gradients.
+// What is left above the launch is the chain of dependent memory round
+// trips: indices, depth, gathers, partial, fence and ticket, partials, G.
 #include <cuda_runtime.h>
 
 #include "sfm_common.cuh"
@@ -30,7 +49,41 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRows = 8;
-constexpr int kTri = kRows * (kRows + 1) / 2;  // 36
+constexpr int kTri = kRows * (kRows + 1) / 2;            // 36
+constexpr int kGroups = kThreads / kTri;                 // 7
+constexpr int kRedStride = kThreads + 1;
+
+// Sum ``count`` values v(0..count-1) for sum index e = tid % 36 in a fixed
+// order: group g = tid / 36 adds v(g * run ..) in order into grp[g][e], then
+// threads 0..35 add the groups in order. Returns the total in threads 0..35.
+template <typename F>
+__device__ __forceinline__ float grouped_sum(F v, int count,
+                                             float (*grp)[kTri]) {
+  const int e = threadIdx.x % kTri;
+  const int g = threadIdx.x / kTri;
+  if (g < kGroups) {
+    const int run = (count + kGroups - 1) / kGroups;
+    const int hi = min(count, (g + 1) * run);
+    float s = 0.0f;
+    int k = g * run;
+    for (; k + 8 <= hi; k += 8) {      // eight loads in flight, added in order
+      float x[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = v(k + i, e);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s += x[i];
+    }
+    for (; k < hi; ++k) s += v(k, e);
+    grp[g][e] = s;
+  }
+  __syncthreads();
+  float total = 0.0f;
+  if (threadIdx.x < kTri) {
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) total += grp[k][threadIdx.x];
+  }
+  return total;
+}
 
 template <int GRAD_MODE>
 __global__ void __launch_bounds__(kThreads)
@@ -38,15 +91,26 @@ se3_gram_kernel(const float* __restrict__ params, const int* __restrict__ src,
                 const int* __restrict__ dst, const int* __restrict__ active,
                 const float* __restrict__ img0, const float* __restrict__ dpt,
                 const float* __restrict__ img1, const float* __restrict__ gx1,
-                const float* __restrict__ gy1, float* __restrict__ part, int K,
-                int K1, int H, int W, int px_per_blk, int nblk) {
+                const float* __restrict__ gy1, float* part,
+                float* __restrict__ G, int* tickets, int K, int K1, int H,
+                int W, int px_per_blk, int nblk) {
+  __shared__ float red[kTri * kRedStride];     // [sum][thread]
+  __shared__ float grp[kGroups][kTri];
+  __shared__ int is_last;
   const int p = blockIdx.y;
   const int blk = blockIdx.x;
-  if (active[p] == 0) return;
-  const int N = H * W;
+  const int tid = threadIdx.x;
+  // the factor's scalars are loaded before the branch on ``active`` so that
+  // all of them are in flight at once
+  const int on = active[p];
   const int s = min(max(src[p], 0), K - 1);
   const int d = min(max(dst[p], 0), K1 - 1);
   const dfk::FactorParams f = dfk::load_params(params + p * dfk::kParamDim);
+  if (on == 0) {
+    if (blk == 0 && tid < kRows * kRows) G[(size_t)p * kRows * kRows + tid] = 0.0f;
+    return;
+  }
+  const int N = H * W;
   const float* im0 = img0 + (size_t)s * N;
   const float* dp0 = dpt + (size_t)s * N;
   const float* im1 = img1 + (size_t)d * N;
@@ -59,7 +123,7 @@ se3_gram_kernel(const float* __restrict__ params, const int* __restrict__ src,
 
   const int begin = blk * px_per_blk;
   const int end = min(N, begin + px_per_blk);
-  for (int n = begin + threadIdx.x; n < end; n += kThreads) {
+  for (int n = begin + tid; n < end; n += kThreads) {
     const float xs = (float)(n % W);
     const float ys = (float)(n / W);
     const dfk::Warp w = dfk::correspondence(f, xs, ys, __ldg(dp0 + n), H, W);
@@ -82,47 +146,40 @@ se3_gram_kernel(const float* __restrict__ params, const int* __restrict__ src,
     }
   }
 
-  // block reduction: warp shuffles, then a fixed-order sum over the warps
-  __shared__ float warp_sums[kThreads / 32][kTri];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  // block reduction through shared memory, transposed, in thread order
 #pragma unroll
-  for (int e = 0; e < kTri; ++e) {
-    float v = acc[e];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) warp_sums[warp][e] = v;
-  }
+  for (int e = 0; e < kTri; ++e) red[e * kRedStride + tid] = acc[e];
   __syncthreads();
-  if (threadIdx.x < kTri) {
-    float v = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kThreads / 32; ++k) v += warp_sums[k][threadIdx.x];
-    part[((size_t)p * nblk + blk) * kTri + threadIdx.x] = v;
+  const float strip = grouped_sum(
+      [&](int k, int e) { return red[e * kRedStride + k]; }, kThreads, grp);
+  float* out = part + ((size_t)p * nblk + blk) * kTri;
+  if (tid < kTri) out[tid] = strip;
+
+  // ticket: the last block of the factor sums the strips and writes G
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(tickets + p, 1) == nblk - 1;
+  __syncthreads();
+  if (!is_last) return;
+  if (tid == 0) tickets[p] = 0;
+  __threadfence();
+  const float* all = part + (size_t)p * nblk * kTri;
+  const float v = grouped_sum(
+      [&](int k, int e) { return __ldcg(all + k * kTri + e); }, nblk, grp);
+  if (tid < kTri) {
+    int i = 0, rem = tid;
+    while (rem >= kRows - i) {
+      rem -= kRows - i;
+      ++i;
+    }
+    const int j = i + rem;
+    float* g = G + (size_t)p * kRows * kRows;
+    g[i * kRows + j] = v;
+    g[j * kRows + i] = v;
   }
 }
 
-// G[p] = mirror(sum over strips of part[p]); zero for inactive factors.
-__global__ void se3_gram_reduce(const int* __restrict__ active,
-                                const float* __restrict__ part,
-                                float* __restrict__ G, int nblk) {
-  const int p = blockIdx.x;
-  const int e = threadIdx.x;
-  if (e >= kTri) return;
-  float v = 0.0f;
-  if (active[p] != 0) {
-    for (int k = 0; k < nblk; ++k) v += part[((size_t)p * nblk + k) * kTri + e];
-  }
-  int i = 0, rem = e;
-  while (rem >= kRows - i) {
-    rem -= kRows - i;
-    ++i;
-  }
-  const int j = i + rem;
-  G[(size_t)p * kRows * kRows + i * kRows + j] = v;
-  G[(size_t)p * kRows * kRows + j * kRows + i] = v;
-}
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -130,23 +187,30 @@ extern "C" int se3_gram_launch(const float* params, const int* src,
                                const int* dst, const int* active,
                                const float* img0, const float* dpt,
                                const float* img1, const float* gx1,
-                               const float* gy1, float* part, float* G, int P,
-                               int K, int K1, int H, int W, int px_per_blk,
-                               int nblk, int grad_mode, void* stream) {
+                               const float* gy1, float* part, float* G,
+                               int* tickets, int P, int K, int K1, int H,
+                               int W, int px_per_blk, int nblk, int grad_mode,
+                               void* stream) {
+  if (px_per_blk < 1 || (long long)nblk * px_per_blk < (long long)H * W)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(nblk, P);
   if (grad_mode == 0) {
     se3_gram_kernel<0><<<grid, kThreads, 0, st>>>(
-        params, src, dst, active, img0, dpt, img1, gx1, gy1, part, K, K1, H, W,
-        px_per_blk, nblk);
+        params, src, dst, active, img0, dpt, img1, gx1, gy1, part, G, tickets,
+        K, K1, H, W, px_per_blk, nblk);
   } else {
     se3_gram_kernel<1><<<grid, kThreads, 0, st>>>(
-        params, src, dst, active, img0, dpt, img1, gx1, gy1, part, K, K1, H, W,
-        px_per_blk, nblk);
+        params, src, dst, active, img0, dpt, img1, gx1, gy1, part, G, tickets,
+        K, K1, H, W, px_per_blk, nblk);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  se3_gram_reduce<<<P, 64, 0, st>>>(active, part, G, nblk);
+  return (int)cudaGetLastError();
+}
+
+// One launch of a kernel that does nothing: the floor under any single
+// launch on this card, timed beside se3_gram_batch.
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

@@ -19,6 +19,18 @@ Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
 the plain twin. Nothing falls back from one to the other. Every kernel
 launch adds one to ``LAUNCHES[name]``.
 
+Both kernels are one launch a call. ``launch_plan`` owns their geometry in
+plain Python (strips, the 8 x 8 register tiles of the SfM Gram and the
+threads that own them, the map from the kernel's rows to G's, shared memory,
+scratch shapes), so the CPU tests reach what the kernels are handed; the
+sources derive none of it and only hold it against their block size and
+shared memory. A block writes one partial per pixel strip;
+the last block of a factor to finish, found with an integer ticket, sums the
+partials in strip order and writes G, so results are bitwise reproducible.
+The tickets are a buffer per (device, stream), all zero between launches:
+calls on one stream are ordered, and two streams never share a buffer.
+``make_sfm_params`` keeps the constant part of its rows on the device.
+
 Semantics follow the TPU kernels except for their band-gather machinery
 (``_band_sample*`` and the ``cover`` mask, a workaround for Mosaic's in-tile
 gather): here every pixel samples the target image directly, so coverage is
@@ -27,6 +39,7 @@ always complete — the same as the JAX package's XLA path.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -56,19 +69,37 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+# (camera intrinsics, border, min_dpt, huber, avg_dpt, device) -> the constant
+# tail [1, PARAM_DIM - 12] of a params row, kept on the device so that a
+# call copies nothing from the host
+_CONST_ROWS: dict = {}
+_CONST_ROWS_MAX = 256
+
+
+def _const_row(cam: PinholeCamera, border, min_dpt, huber_delta, avg_dpt,
+               device) -> Tensor:
+    vals = (cam.fx, cam.fy, cam.u0, cam.v0, float(border), float(min_dpt),
+            float(huber_delta), float(avg_dpt))
+    key = (vals, str(device))
+    row = _CONST_ROWS.get(key)
+    if row is None:
+        if len(_CONST_ROWS) >= _CONST_ROWS_MAX:
+            _CONST_ROWS.clear()
+        row = torch.tensor([vals + (0.0,) * (PARAM_DIM - 20)],
+                           dtype=torch.float32, device=device)
+        _CONST_ROWS[key] = row
+    return row
+
+
 def make_sfm_params(pose_10: se3m.SE3, cam: PinholeCamera, border, min_dpt,
                     huber_delta, avg_dpt) -> Tensor:
     """Pack per-factor scalars: R(9) t(3) fx fy u0 v0 border min_dpt huber
     avg_dpt, padded to PARAM_DIM. pose_10 is batched [P]."""
     R = se3m.quat_to_matrix(pose_10.q)
     P = R.shape[0]
-    const = torch.tensor(
-        [cam.fx, cam.fy, cam.u0, cam.v0, float(border), float(min_dpt),
-         float(huber_delta), float(avg_dpt)],
-        dtype=torch.float32, device=R.device).expand(P, 8)
-    pad = torch.zeros((P, PARAM_DIM - 20), dtype=torch.float32,
-                      device=R.device)
-    return torch.cat([R.reshape(P, 9), pose_10.t, const, pad], dim=-1)
+    const = _const_row(cam, border, min_dpt, huber_delta, avg_dpt, R.device)
+    return torch.cat([R.reshape(P, 9), pose_10.t,
+                      const.expand(P, PARAM_DIM - 12)], dim=-1)
 
 
 # ----------------------------------------------------------------------------
@@ -284,10 +315,144 @@ def _raise_on(code: int, lib, fn_name: str):
 
 def _strips(N: int, max_strips: int, min_px: int):
     """(pixels per block, blocks) for a strip split of N pixels; strips are
-    whole 256-pixel tiles."""
+    whole 256-pixel tiles (the launch geometry of csrc/sfm_error.cu)."""
     per = max(min_px, -(-N // max_strips))
     per = -(-per // 256) * 256
     return per, -(-N // per)
+
+
+THREADS = 256            # threads per block of both kernels
+TILE = 8                 # edge of sfm_gram.cu's square register tile
+_REDUCE_ROUND = 32       # accumulators per round of its block reduction
+_STAGE_ROW = THREADS     # floats of one row of its input stage
+_SMEM_MAX = 227 * 1024   # shared memory a block can opt in to on sm_90
+_SM_COUNT = 132          # H100 SXM
+_BLOCKS_PER_SM = 2       # resident blocks of either kernel (registers)
+_SFM_MAX_STRIPS = 12     # strips per factor at most (sfm_gram_batch)
+_SE3_MAX_PX = 8          # pixels a thread at most (se3_gram_batch)
+
+
+class LaunchPlan(NamedTuple):
+    """How a kernel of this module is launched on one call's shapes."""
+
+    grid: tuple           # blocks of THREADS threads: (strips, P), sfm (P, strips)
+    px_per_blk: int       # pixels of a strip
+    nblk: int             # strips per factor
+    R: int                # rows of G
+    Rp: int               # R padded up to the register tile
+    tiles: tuple          # (block row, block column) of every register tile
+    lanes: int            # threads per pixel slice (tile count rounded up)
+    nslices: int          # pixel slices that share one tile of pixels
+    steps: int            # pixels of a tile that one slice walks
+    tile_px: int          # pixels built per tile = nslices * steps
+    stride: int           # floats between two pixels' rows in shared memory
+    stage_off: int        # floats before the input stage in shared memory
+    smem_bytes: int       # dynamic shared memory of a block
+    table: tuple          # what the kernel reads: every tile's block row, every
+                          # tile's block column, then for each of the Rp rows
+                          # of shared memory its row of G (-1: padding)
+    part_shape: tuple     # scratch: one partial per (factor, strip)
+    ticket_shape: tuple   # int32 tickets, one per factor
+
+
+def public_row(q: int, CS: int) -> int:
+    """Row of G that row ``q`` of sfm_gram.cu's shared-memory layout
+    [jac(CS) | A(6) | w*r | valid] lands in ([A | jac | w*r | valid])."""
+    if q < CS:
+        return q + 6
+    if q < CS + 6:
+        return q - CS
+    return q
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(name: str, P: int, H: int, W: int, CS: int = 0) -> LaunchPlan:
+    """The launch geometry of ``se3_gram_batch`` or ``sfm_gram_batch`` for P
+    factors on H x W planes (code size CS): what the wrappers hand to
+    csrc/se3_gram.cu and csrc/sfm_gram.cu, which derive none of it. Plans
+    are cached by their arguments; the module's constants are read when a
+    plan is first made."""
+    N = H * W
+    slots = _BLOCKS_PER_SM * _SM_COUNT
+    if name == "se3_gram_batch":
+        # one pixel a thread; more only where the blocks would not all be
+        # resident at once
+        strips1 = -(-N // THREADS)
+        ppt = min(_SE3_MAX_PX, max(1, -(-strips1 * P // slots)))
+        per = THREADS * ppt
+        nblk = -(-N // per)
+        return LaunchPlan((nblk, P), per, nblk, 8, 8, (), 0, 0, 0, 0, 0, 0, 0,
+                          (), (P, nblk, 36), (P,))
+    if name != "sfm_gram_batch":
+        raise ValueError(f"no launch plan for {name!r}")
+    if not 1 <= CS <= MAX_CODE_SIZE:
+        raise ValueError(f"code size {CS} is not in 1..{MAX_CODE_SIZE}")
+    R = CS + 8
+    nb = -(-R // TILE)
+    Rp = nb * TILE
+    tiles = tuple((i, j) for i in range(nb) for j in range(i, nb))
+    n = len(tiles)
+    # lanes of one pixel slice: a power of two below 16, else a multiple of
+    # 16, so that a warp's lanes sit at no more than two pixels
+    lanes = 1 << (n - 1).bit_length() if n <= 8 else -(-n // 16) * 16
+    nslices = THREADS // lanes
+    stride = Rp + 4
+    # pixels of a tile: every slice walks ``steps`` of them; a multiple of 4
+    # (16-byte rows for the bulk copies) that fits shared memory
+    steps = THREADS // nslices
+    while steps > 1 and (nslices * steps) % 4:
+        steps -= 1
+    tile_px = nslices * steps
+    # the rows of a tile and, after the strip, the block reduction share the
+    # front of shared memory; the input stage follows
+    stage_off = max(tile_px * stride, _REDUCE_ROUND * THREADS)
+    smem = 4 * (stage_off + (CS + 2) * _STAGE_ROW)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"code size {CS} needs {smem} bytes of shared memory")
+    # strips: about two rounds of resident blocks if every factor is active
+    want = min(_SFM_MAX_STRIPS, max(2, round(2 * slots / P)))
+    per = -(-N // want)
+    per = max(1, -(-per // tile_px)) * tile_px
+    nblk = -(-N // per)
+    table = (tuple(i for i, _ in tiles) + tuple(j for _, j in tiles)
+             + tuple(public_row(q, CS) if q < R else -1 for q in range(Rp)))
+    return LaunchPlan((P, nblk), per, nblk, R, Rp, tiles, lanes, nslices,
+                      steps, tile_px, stride, stage_off, smem, table,
+                      (P, nblk, n * TILE * TILE), (P,))
+
+
+# (device index, stream) -> int32 tickets, all zero between launches: each
+# kernel's last block per factor resets its ticket. One buffer per stream:
+# launches on one stream are ordered, launches on two streams are not.
+_TICKETS: dict = {}
+
+
+def _tickets(dev: torch.device, stream: int, P: int) -> Tensor:
+    key = (dev.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.shape[0] < P:
+        t = _TICKETS[key] = torch.zeros(max(P, 256), dtype=torch.int32,
+                                        device=dev)
+    return t
+
+
+def _drop_tickets(dev: torch.device, stream: int) -> None:
+    """After a failed launch: the next call on this stream gets fresh zeros,
+    whatever the failed one left in its tickets."""
+    _TICKETS.pop((dev.index, stream), None)
+
+
+# (code size, device index) -> a plan's ``table`` as int32 on the device
+_TABLES: dict = {}
+
+
+def _table(plan: LaunchPlan, CS: int, dev: torch.device) -> Tensor:
+    key = (CS, dev.index)
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = torch.tensor(plan.table, dtype=torch.int32,
+                                        device=dev)
+    return t
 
 
 _SIGS = {}
@@ -304,6 +469,15 @@ def _lib(source: str, fn: str, err_fn: str, nargs_ptr: int, nargs_int: int):
         getattr(lib, err_fn).argtypes = [ctypes.c_int]
         _SIGS[(source, fn)] = True
     return lib
+
+
+def empty_launch(device) -> None:
+    """Launch a kernel that does nothing on ``device``'s current stream: the
+    floor under any single launch, for timing beside the kernels."""
+    lib = _lib("se3_gram.cu", "empty_launch", "se3_gram_error_string", 0, 0)
+    code = lib.empty_launch(
+        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    _raise_on(code, lib, "se3_gram_error_string")
 
 
 def _se3_gram_cuda(params, src, dst, img0_pool, dpt_pool, img1_pool,
@@ -328,17 +502,20 @@ def _se3_gram_cuda(params, src, dst, img0_pool, dpt_pool, img1_pool,
         _check(gy1_pool, "gy1_pool", f32, (K1, H, W), dev)
     else:
         gx1_pool = gy1_pool = None
-    per, nblk = _strips(H * W, 16, 1024)
-    part = torch.empty((P, nblk, 36), dtype=f32, device=dev)
+    plan = launch_plan("se3_gram_batch", P, H, W)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part = torch.empty(plan.part_shape, dtype=f32, device=dev)
     G = torch.empty((P, 8, 8), dtype=f32, device=dev)
     lib = _lib("se3_gram.cu", "se3_gram_launch", "se3_gram_error_string",
-               11, 8)
+               12, 8)
     code = lib.se3_gram_launch(
         _ptr(params), _ptr(src), _ptr(dst), _ptr(active), _ptr(img0_pool),
         _ptr(dpt_pool), _ptr(img1_pool), _ptr(gx1_pool), _ptr(gy1_pool),
-        _ptr(part), _ptr(G), P, K, K1, H, W, per, nblk,
-        _GRAD_MODES[grad_mode],
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _ptr(part), _ptr(G), _ptr(_tickets(dev, stream, P)), P, K, K1, H, W,
+        plan.px_per_blk, plan.nblk, _GRAD_MODES[grad_mode],
+        ctypes.c_void_p(stream))
+    if code != 0:
+        _drop_tickets(dev, stream)
     _raise_on(code, lib, "se3_gram_error_string")
     LAUNCHES["se3_gram_batch"] += 1
     return G
@@ -375,19 +552,24 @@ def _sfm_gram_cuda(params, src, dst, img0_pool, dpt_pool, jacT_pool,
         gx1_pool = gy1_pool = None
     if codes is not None:
         _check(codes, "codes", f32, (P, CS), dev)
-    R = CS + 8
-    per, nblk = _strips(H * W, 12, 1024)
-    part = torch.empty((P, nblk, R * (R + 1) // 2), dtype=f32, device=dev)
-    G = torch.empty((P, R, R), dtype=f32, device=dev)
+    plan = launch_plan("sfm_gram_batch", P, H, W, CS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part = torch.empty(plan.part_shape, dtype=f32, device=dev)
+    G = torch.empty((P, plan.R, plan.R), dtype=f32, device=dev)
     lib = _lib("sfm_gram.cu", "sfm_gram_launch", "sfm_gram_error_string",
-               13, 11)
+               15, 19)
     code = lib.sfm_gram_launch(
         _ptr(params), _ptr(src), _ptr(dst), _ptr(active), _ptr(codes),
         _ptr(img0_pool), _ptr(dpt_pool), _ptr(jacT_pool), _ptr(img1_pool),
         _ptr(gx1_pool), _ptr(gy1_pool), _ptr(part), _ptr(G),
-        P, K, K1, CS, H, W, per, nblk, _GRAD_MODES[grad_mode], _LOSSES[loss],
-        int(codes is not None),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _ptr(_tickets(dev, stream, P)), _ptr(_table(plan, CS, dev)),
+        P, K, K1, CS, H, W, plan.px_per_blk, plan.nblk, plan.Rp,
+        len(plan.tiles), plan.lanes, plan.nslices, plan.steps, plan.stride,
+        plan.stage_off, plan.smem_bytes,
+        _GRAD_MODES[grad_mode], _LOSSES[loss], int(codes is not None),
+        ctypes.c_void_p(stream))
+    if code != 0:
+        _drop_tickets(dev, stream)
     _raise_on(code, lib, "sfm_gram_error_string")
     LAUNCHES["sfm_gram_batch"] += 1
     return G

@@ -1,0 +1,195 @@
+"""Time the two Gram kernels beside an earlier design of the same kernels,
+in turns, inside one process on one card.
+
+The current kernels are built from deepfactors_tpu_torch/csrc as always.
+``--prev DIR`` names a directory holding an earlier ``se3_gram.cu``,
+``sfm_gram.cu`` and ``sfm_common.cuh`` with the two-launch C interface of the
+port's first design (``se3_gram_launch`` / ``sfm_gram_launch`` taking
+``part, G, ..., px_per_blk, nblk`` and running a second reduce kernel), for
+example unpacked from an older commit:
+
+    mkdir -p build/prev && git archive <commit> deepfactors_tpu_torch/csrc \\
+        | tar -x -C build/prev --strip-components=2
+    python3 port_tools/compare_gram_designs.py --prev build/prev
+
+Shapes are chip_smoke.py's main-path shapes: sfm_gram_batch at P = 128 (64
+active), CS 32, depth from the codes, interp gradients, Tukey at 192x256
+and Huber at 96x128 and 48x64; se3_gram_batch at P = 1 interp and P = 8
+sampled at the three sizes. Each pair is timed prev, new, new, prev with
+chip_smoke.cuda_ms and both readings are printed, with the card's name and
+power limit, the max difference of the two designs' G relative to max|G|,
+and the time of an empty launch. ``--ptxas`` prints nvcc's resource report
+of the current sources; ``--json PATH`` also writes the readings to PATH.
+"""
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def build_prev(prev_dir, build):
+    libs = {}
+    procs = []
+    for name in ("se3_gram", "sfm_gram"):
+        out = os.path.join(prev_dir, f"{name}_prev.so")
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", out,
+               os.path.join(prev_dir, f"{name}.cu")]
+        procs.append((name, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for name, out, proc in procs:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the earlier {name}.cu:\n{text}")
+        libs[name] = ctypes.CDLL(out)
+    for fn, nptr, nint in ((libs["se3_gram"].se3_gram_launch, 11, 8),
+                           (libs["sfm_gram"].sfm_gram_launch, 13, 11)):
+        fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * nint
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return libs
+
+
+def prev_strips(N, max_strips, min_px):
+    per = max(min_px, -(-N // max_strips))
+    per = -(-per // 256) * 256
+    return per, -(-N // per)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--prev", default=None)
+    ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--json", default=None)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_gram_designs: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.geometry.camera import camera_pyramid
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+    from deepfactors_tpu_torch.geometry.warping import depth_to_prox
+    from deepfactors_tpu_torch.ops.kernels import build
+    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
+
+    dev = "cuda"
+    smi = cs.smi_line()
+    cs.log(smi)
+    build.build_all(ptxas_verbose=args.ptxas)
+    if args.ptxas:
+        for src in ("se3_gram.cu", "sfm_gram.cu"):
+            cs.log(f"--- {src}\n{build.build_log[src]['ptxas']}")
+    prev = build_prev(args.prev, build) if args.prev else None
+    p = sg._ptr
+    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def prev_sfm(kp, src, dst, img0, dpt, jac, img1, active, codes, loss):
+        P, (K, H, W), CS = src.shape[0], img0.shape, jac.shape[1]
+        R = CS + 8
+        per, nblk = prev_strips(H * W, 12, 1024)
+        part = torch.empty((P, nblk, R * (R + 1) // 2), device=dev)
+        G = torch.empty((P, R, R), device=dev)
+        code = prev["sfm_gram"].sfm_gram_launch(
+            p(kp), p(src), p(dst), p(active), p(codes), p(img0), p(dpt),
+            p(jac), p(img1), p(None), p(None), p(part), p(G), P, K,
+            img1.shape[0], CS, H, W, per, nblk, 0, sg._LOSSES[loss], 1,
+            stream())
+        assert code == 0, code
+        return G
+
+    def prev_se3(kp, src, dst, img0, dpt, img1, gx, gy, active, gm):
+        P, (K, H, W) = src.shape[0], img0.shape
+        per, nblk = prev_strips(H * W, 16, 1024)
+        part = torch.empty((P, nblk, 36), device=dev)
+        G = torch.empty((P, 8, 8), device=dev)
+        sampled = gm == "sampled"
+        code = prev["se3_gram"].se3_gram_launch(
+            p(kp), p(src), p(dst), p(active), p(img0), p(dpt), p(img1),
+            p(gx if sampled else None), p(gy if sampled else None), p(part),
+            p(G), P, K, img1.shape[0], H, W, per, nblk, int(sampled), stream())
+        assert code == 0, code
+        return G
+
+    def turns(new, old, iters):
+        """[prev, new, new, prev] milliseconds (prev None without --prev)."""
+        t = lambda f: cs.cuda_ms(f, iters=iters)
+        if old is None:
+            return [None, t(new), t(new), None]
+        return [t(old), t(new), t(new), t(old)]
+
+    K = 32
+    cam, levels, q, t, codes_k = cs.make_pools(dev, K=K, CS=32)
+    cams = camera_pyramid(cam, 3)
+    rows = []
+    floor = cs.cuda_ms(lambda: sg.empty_launch(dev), iters=200)
+    cs.log(f"empty launch: {1e3 * floor:.2f} us")
+
+    P = 128
+    src, dst, active = cs.factor_set(K, P, dev)
+    sl, dl = src.long(), dst.long()
+    pose_10, _, _ = se3m.relative_pose_jacobians(SE3(q[dl], t[dl]),
+                                                 SE3(q[sl], t[sl]))
+    pose_10 = cs.perturb(pose_10, seed=3)
+    for l, lv in enumerate(levels):
+        loss = "tukey" if l == 0 else "huber"
+        codes = codes_k[sl].contiguous()
+        prx = depth_to_prox(lv["dpt"], 2.0)
+        prx0 = (prx - torch.einsum("kchw,kc->khw", lv["jac"], codes_k)).contiguous()
+        kp = sg.make_sfm_params(pose_10, cams[l], 2, 0.0,
+                                0.1 if loss == "tukey" else 0.3, 2.0)
+        new = lambda: sg.sfm_gram_batch(
+            kp, src, dst, lv["img"], prx0, lv["jac"], lv["img"], active=active,
+            codes=codes, grad_mode="interp", loss=loss)
+        old = (lambda: prev_sfm(kp, src, dst, lv["img"], prx0, lv["jac"],
+                                lv["img"], active, codes, loss)) if prev else None
+        diff = None
+        if prev:
+            a, b = new(), old()
+            diff = float((a - b).abs().max() / b.abs().max())
+        hw = "x".join(map(str, lv["img"].shape[1:]))
+        rows.append(dict(kernel="sfm_gram_batch", shape=f"P=128 CS=32 {hw} {loss}",
+                         ms=turns(new, old, 20), rel_diff=diff))
+
+    for P, gm in ((1, "interp"), (8, "sampled")):
+        src, dst, _ = cs.factor_set(K, P, dev, seed=2)
+        active = torch.ones(P, dtype=torch.int32, device=dev)
+        sl, dl = src.long(), dst.long()
+        pose_10 = cs.perturb(se3m.relative_pose(SE3(q[dl], t[dl]),
+                                                SE3(q[sl], t[sl])), seed=4 + P)
+        for l, lv in enumerate(levels):
+            kp = sg.make_sfm_params(pose_10, cams[l], 1, 0.0, 0.3, 2.0)
+            a_ = (kp, src, dst, lv["img"], lv["dpt"], lv["img"], lv["gx"],
+                  lv["gy"])
+            new = lambda: sg.se3_gram_batch(*a_, active=active, grad_mode=gm)
+            old = (lambda: prev_se3(*a_, active, gm)) if prev else None
+            diff = None
+            if prev:
+                a, b = new(), old()
+                diff = float((a - b).abs().max() / b.abs().max())
+            hw = "x".join(map(str, lv["img"].shape[1:]))
+            rows.append(dict(kernel="se3_gram_batch", shape=f"P={P} {hw} {gm}",
+                             ms=turns(new, old, 100), rel_diff=diff))
+
+    f = lambda x: "-" if x is None else f"{1e3 * x:.1f}"
+    cs.log("times in us, in the order they were taken: prev, new, new, prev")
+    for r in rows:
+        cs.log(f"{r['kernel']} {r['shape']}: " + " ".join(map(f, r["ms"]))
+               + (f"; designs differ by {r['rel_diff']:.2e} of max|G|"
+                  if r["rel_diff"] is not None else ""))
+    cs.log(smi)
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+        with open(args.json, "w") as fh:
+            json.dump(dict(card=smi, empty_launch_ms=floor, rows=rows), fh)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

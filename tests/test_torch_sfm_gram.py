@@ -258,3 +258,241 @@ def test_wrappers_reject_unknown_modes():
     with pytest.raises(ValueError):
         tsg.se3_gram_batch(kt, T(pr["src"]), T(pr["dst"]), T(pr["imgs"]),
                            T(pr["dpt"]), T(pr["imgs"]), grad_mode="bogus")
+
+
+# ----------------------------------------------------------------------------
+# what surrounds the CUDA kernels: the launch plan, the tile map, the order
+# of the kernel's sums. These tests check the plan, which the kernels are
+# handed and derive nothing of (strips, tile table, row map, slices, shared
+# memory), not the kernels: those run only on a card, where chip_smoke.py
+# holds them against the twins.
+# ----------------------------------------------------------------------------
+
+SIZES = [(192, 256), (96, 128), (48, 64), (90, 122)]
+
+
+@pytest.mark.parametrize("H,W", SIZES)
+@pytest.mark.parametrize("name,P,CS", [("se3_gram_batch", 1, 0),
+                                       ("se3_gram_batch", 8, 0),
+                                       ("sfm_gram_batch", 128, 32),
+                                       ("sfm_gram_batch", 3, 64)])
+def test_launch_plan_covers_every_pixel_once(name, P, CS, H, W):
+    plan = tsg.launch_plan(name, P, H, W, CS)
+    N = H * W
+    seen = np.zeros(N, np.int32)
+    for blk in range(plan.nblk):
+        begin, end = blk * plan.px_per_blk, min(N, (blk + 1) * plan.px_per_blk)
+        assert begin < end, "an empty strip"
+        if name == "se3_gram_batch":
+            # thread t of 256 walks begin + t, begin + t + 256, ...
+            for t in range(tsg.THREADS):
+                seen[begin + t:end:tsg.THREADS] += 1
+            continue
+        # tiles of tile_px pixels; slice s walks pixels s, s + nslices, ...
+        assert plan.tile_px == plan.nslices * plan.steps <= tsg.THREADS
+        assert plan.tile_px % 4 == 0 and plan.px_per_blk % plan.tile_px == 0
+        for tile in range(begin, end, plan.tile_px):
+            for s in range(plan.nslices):
+                px = tile + s + plan.nslices * np.arange(plan.steps)
+                np.add.at(seen, px[px < end], 1)
+    assert (seen == 1).all()
+    assert set(plan.grid) == {plan.nblk, P} or plan.nblk == P
+    assert plan.part_shape[:2] == (P, plan.nblk) and plan.ticket_shape == (P,)
+
+
+@pytest.mark.parametrize("CS", [8, 32, 64, 5])
+def test_tile_map_covers_the_upper_triangle_once(CS):
+    """The writer of G, replayed from the table the plan hands the kernel
+    (tile -> block row, tile -> block column, shared-memory row -> row of
+    G): every entry of the R x R matrix is written exactly once (the
+    triangle and its mirror), padding rows never."""
+    plan = tsg.launch_plan("sfm_gram_batch", 4, 48, 64, CS)
+    R, T = CS + 8, tsg.TILE
+    assert plan.R == R and plan.Rp % T == 0 and 0 <= plan.Rp - R < T
+    assert len(plan.tiles) <= plan.lanes and plan.lanes * plan.nslices <= tsg.THREADS
+    assert plan.part_shape[2] == len(plan.tiles) * T * T
+    n = len(plan.tiles)
+    assert len(plan.table) == 2 * n + plan.Rp
+    ti_of, tj_of, row_of = (plan.table[:n], plan.table[n:2 * n],
+                            plan.table[2 * n:])
+    assert tuple(zip(ti_of, tj_of)) == plan.tiles
+    assert all(r == -1 for r in row_of[R:]), "a padding row maps into G"
+    written = np.zeros((R, R), np.int32)
+    rows = sorted(tsg.public_row(q, CS) for q in range(R))
+    assert rows == list(range(R)), "public_row is no permutation"
+    assert [tsg.public_row(q, CS) for q in (0, CS, CS + 6, CS + 7)] == \
+        [6, 0, CS + 6, CS + 7]
+    for ti, tj in zip(ti_of, tj_of):
+        assert ti <= tj
+        for a in range(T):
+            for b in range(T):
+                qi, qj = T * ti + a, T * tj + b
+                gi, gj = row_of[qi], row_of[qj]
+                if (ti == tj and qj < qi) or gi < 0 or gj < 0:
+                    continue
+                assert (gi, gj) == (tsg.public_row(qi, CS),
+                                    tsg.public_row(qj, CS))
+                written[gi, gj] += 1
+                if gi != gj:
+                    written[gj, gi] += 1
+    assert (written == 1).all()
+
+
+@pytest.mark.parametrize("CS", [1, 8, 32, 40, 64])
+def test_launch_plan_shared_memory_fits(CS):
+    plan = tsg.launch_plan("sfm_gram_batch", 128, 192, 256, CS)
+    rows = plan.tile_px * plan.stride
+    assert plan.stride >= plan.Rp and plan.stride % 8 == 4, \
+        "float4 stores of a quarter warp must hit eight bank groups"
+    assert plan.stage_off % 4 == 0, "the bulk copies land 16-byte aligned"
+    assert plan.stage_off >= max(rows, 32 * tsg.THREADS), \
+        "the stage overlaps the rows or the block reduction"
+    assert plan.smem_bytes >= 4 * (plan.stage_off + (CS + 2) * 256)
+    assert plan.smem_bytes <= 227 * 1024
+    if CS <= 32:     # two blocks an SM on the main path
+        assert 2 * (plan.smem_bytes + 1024) <= 227 * 1024
+
+
+def _fma32(a, b, c):
+    """fp32 fused multiply-add: the product is exact in fp64."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def _capture_rows(monkeypatch):
+    """Make the twins hand out their rows [P, R, N] beside G."""
+    got = {}
+    gram = tsg._gram
+
+    def spy(rows, active):
+        got["B"] = torch.stack(rows, dim=1).numpy()
+        return gram(rows, active)
+
+    monkeypatch.setattr(tsg, "_gram", spy)
+    return got
+
+
+def _blocks_within_tol(Gk, Gp, DB):
+    np.testing.assert_array_equal(Gk[:, DB + 1, DB + 1], Gp[:, DB + 1, DB + 1])
+    for p in range(Gp.shape[0]):
+        assert rel_err(Gk[p, :DB, :DB], Gp[p, :DB, :DB]) < TOL
+        assert rel_err(Gk[p, :DB, DB], Gp[p, :DB, DB]) < TOL
+        assert abs(Gk[p, DB, DB] - Gp[p, DB, DB]) < TOL * abs(Gp[p, DB, DB])
+
+
+def test_sfm_gram_kernel_summation_order_within_tolerance(monkeypatch):
+    """The reason for the kernel-vs-twin tolerance of 1e-4 per block: the
+    twin's rows summed again in fp32 in the CUDA kernel's order (fmaf over
+    the pixels of a slice, slices in order, strips in order) against the
+    twin's matmul, at 48x64."""
+    H, W, CS = 48, 64, 8
+    pr = make_problem(H, W, CS, 4, 3, seed=4)
+    pr["active"][:] = 1
+    got = _capture_rows(monkeypatch)
+    _, Gp, _, _ = _sfm_pair(pr, H, W, CS, "interp", "huber", True)
+    B, Gp = got["B"], Gp.numpy()
+    P, R, N = B.shape
+    plan = tsg.launch_plan("sfm_gram_batch", P, H, W, CS)
+    G = np.zeros((P, R, R), np.float32)
+    for blk in range(plan.nblk):
+        begin, end = blk * plan.px_per_blk, min(N, (blk + 1) * plan.px_per_blk)
+        acc = np.zeros((plan.nslices, P, R, R), np.float32)
+        for tile in range(begin, end, plan.tile_px):
+            rows = np.zeros((P, R, plan.tile_px), np.float32)
+            n = min(plan.tile_px, end - tile)
+            rows[:, :, :n] = B[:, :, tile:tile + n]
+            for k in range(plan.steps):
+                b = rows[:, :, k * plan.nslices:(k + 1) * plan.nslices]
+                b = np.moveaxis(b, 2, 0)                       # [slice, P, R]
+                acc = _fma32(b[..., :, None], b[..., None, :], acc)
+        strip = np.zeros((P, R, R), np.float32)
+        for s in range(plan.nslices):
+            strip = strip + acc[s]
+        G = G + strip
+    _blocks_within_tol(G, Gp, 6 + CS)
+    assert np.abs(G - Gp).max() > 0, "the orders should differ in the last bits"
+
+
+def test_se3_gram_kernel_summation_order_within_tolerance(monkeypatch):
+    """The same for se3_gram_batch: one pixel a thread, 7 groups of threads
+    summed in runs, then the groups, then the strips in 7 runs."""
+    H, W = 48, 64
+    pr = make_problem(H, W, 4, 3, 4, seed=3)
+    pr["active"][:] = 1
+    _, ct = cams(H, W)
+    kt = tsg.make_sfm_params(
+        tse3.relative_pose(TSE3(T(pr["q"][pr["dst"]]), T(pr["t"][pr["dst"]])),
+                           TSE3(T(pr["q"][pr["src"]]), T(pr["t"][pr["src"]]))),
+        ct, 1, 0.0, 0.3, 2.0)
+    got = _capture_rows(monkeypatch)
+    Gp = tsg.se3_gram_batch(kt, T(pr["src"]), T(pr["dst"]), T(pr["imgs"]),
+                            T(pr["dpt"]), T(pr["imgs"]), grad_mode="interp").numpy()
+    B = got["B"]
+    P, R, N = B.shape
+    plan = tsg.launch_plan("se3_gram_batch", P, H, W)
+
+    def grouped(vals):                       # [count, ...] -> sum in 7 runs
+        run = -(-len(vals) // 7)
+        total = np.zeros_like(vals[0])
+        for g in range(7):
+            s = np.zeros_like(vals[0])
+            for v in vals[g * run:(g + 1) * run]:
+                s = s + v
+            total = total + s
+        return total
+
+    strips = []
+    for blk in range(plan.nblk):
+        begin, end = blk * plan.px_per_blk, min(N, (blk + 1) * plan.px_per_blk)
+        acc = np.zeros((tsg.THREADS, P, R, R), np.float32)
+        for first in range(begin, end, tsg.THREADS):
+            b = np.zeros((tsg.THREADS, P, R), np.float32)
+            n = min(tsg.THREADS, end - first)
+            b[:n] = np.moveaxis(B[:, :, first:first + n], 2, 0)
+            acc = _fma32(b[..., :, None], b[..., None, :], acc)
+        strips.append(grouped(acc))
+    _blocks_within_tol(grouped(np.stack(strips)), Gp, 6)
+
+
+def test_make_sfm_params_keeps_its_constants_on_the_device():
+    """The constant tail of a params row is built once per (camera, border,
+    min_dpt, huber, avg_dpt, device) and gives the same bits as a row built
+    from the host on every call."""
+    pr = make_problem(16, 32, 4, 3, 3)
+    _, ct = cams(16, 32)
+    pose = TSE3(T(pr["q"]), T(pr["t"]))
+    tsg._CONST_ROWS.clear()
+    first = tsg.make_sfm_params(pose, ct, 2, 0.01, 0.1, 2.0)
+    (row,) = tsg._CONST_ROWS.values()
+    again = tsg.make_sfm_params(pose, ct, 2, 0.01, 0.1, 2.0)
+    assert list(tsg._CONST_ROWS.values())[0] is row and len(tsg._CONST_ROWS) == 1
+    tsg.make_sfm_params(pose, ct, 2, 0.01, 0.3, 2.0)
+    assert len(tsg._CONST_ROWS) == 2
+    P = 3
+    const = torch.tensor([ct.fx, ct.fy, ct.u0, ct.v0, 2.0, 0.01, 0.1, 2.0],
+                         dtype=torch.float32).expand(P, 8)
+    want = torch.cat([tse3.quat_to_matrix(pose.q).reshape(P, 9), pose.t, const,
+                      torch.zeros((P, tsg.PARAM_DIM - 20))], dim=-1)
+    assert first.shape == (P, tsg.PARAM_DIM)
+    assert torch.equal(first, want) and torch.equal(again, want)
+    first[:, 12:] = -1.0                      # a caller's row is its own
+    assert torch.equal(tsg.make_sfm_params(pose, ct, 2, 0.01, 0.1, 2.0), want)
+
+
+def test_ticket_buffer_is_per_stream_and_dropped_after_a_failure():
+    """The wrappers' ticket buffers: one per (device, stream), reused while
+    it is large enough, and thrown away after a failed launch so that the
+    next call starts from zeros."""
+    dev = torch.device("cpu")
+    tsg._TICKETS.clear()
+    a = tsg._tickets(dev, 1, 8)
+    assert a.dtype == torch.int32 and a.numel() >= 8 and not a.any()
+    assert tsg._tickets(dev, 1, 4) is a
+    assert tsg._tickets(dev, 2, 8) is not a, "two streams share tickets"
+    assert tsg._tickets(dev, 1, a.numel() + 1).numel() > a.numel()
+    a = tsg._tickets(dev, 1, 8)
+    a[3] = 2                                  # what a failed launch may leave
+    tsg._drop_tickets(dev, 1)
+    b = tsg._tickets(dev, 1, 8)
+    assert b is not a and not b.any()
+    tsg._TICKETS.clear()
