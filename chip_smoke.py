@@ -10,9 +10,11 @@ Phases, in order (any failure exits non-zero before the final line):
      P = 1 and 8; both again at sizes no tile divides (90x122, 89x121, CS
      64 and 5), at P = 1, with every factor inactive, and launched
      repeatedly (the same bits, also after another P and size), beside the
-     time of an empty launch; sfm_error_batch and se3_warp_batch at P = 1,
-     2 and 64
-     (half the slots inactive); dense_warp_batch at P = 16 and 64 and
+     time of an empty launch; sfm_error_batch and se3_warp_batch at one P
+     for every distinct launch plan of P = 1..128 (half the slots inactive)
+     at the three sizes and at 90x122 and 89x121, all inactive, launched
+     repeatedly, and timed at the keyframe gate, the map dump and one
+     render; dense_warp_batch at P = 16 and 64 and
      bilinear_warp_planes at C = 3. Times kernel and twin with CUDA events.
   3. the room256_32v4 decoder forward at 192x256 on the card, held against
      the same module on the CPU.
@@ -102,7 +104,7 @@ N_FRAMES = 60
 # 80GB HBM3 at 700 W before the redesign (PERF.md section 6). Constants,
 # not measured in this run: they appear only in the log lines of phase 2,
 # labelled so, never in the kernels line. The two designs timed side by
-# side in one run: port_tools/compare_gram_designs.py --prev.
+# side in one run: port_tools/compare_designs.py --prev.
 PREV_MS = {"sfm_gram_batch": (0.937, 0.253, 0.0885),
            "se3_gram_batch": (0.0173, 0.0099, 0.0099),
            "se3_gram_batch_p8_sampled": (0.0186, 0.0105, 0.0108)}
@@ -460,7 +462,7 @@ def phase_kernels(dev):
     out["se3_gram_batch"]["empty_launch_ms"] = empty_ms
     for name, per_level in results.items():
         out[name]["by_level"] = per_level
-    out.update(phase_error_kernels(dev, K, cams, levels, q, t))
+    out.update(phase_error_kernels(dev, K, cams, levels, q, t, empty_ms))
     out.update(phase_warp_kernels(dev, K, cams, levels, q, t))
     return out
 
@@ -602,15 +604,68 @@ def gram_edge_checks(dev, K, cams, levels, q, t, record):
     return n
 
 
-def phase_error_kernels(dev, K, cams, levels, q, t):
-    """sfm_error_batch and se3_warp_batch against their twins at the three
-    pyramid sizes, P = 1, 2 and a pool-sized batch with inactive slots, at
-    perturbed poses; then their times at the shapes the main path gives
-    them: the keyframe gate (P = 2: two depth hypotheses of one image
-    against one reference), the map dump (P = 64) and one warp render."""
+def error_plan_ps(H, W, p_max=128):
+    """The smallest P of every distinct launch plan that P = 1..p_max gives
+    sfm_error_batch and se3_warp_batch (one plan rule for both) on H x W
+    planes: the dump's P is the number of live factors at a level,
+    anywhere from 1 to max_factors (128 in phase 4)."""
+    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
+    first = {}
+    for P in range(1, p_max + 1):
+        plan = sg.launch_plan("sfm_error_batch", P, H, W)
+        first.setdefault((plan.px_per_blk, plan.nblk), P)
+    return sorted(first.values())
+
+
+def error_case(dev, K, P, planes, cam, q, t):
+    """(args, active) of one sfm_error_batch / se3_warp_batch call on
+    ``planes`` (img, dpt [K, H, W]) with P factors at perturbed poses: all
+    active for P <= 2, else half the slots."""
     import torch
     from deepfactors_tpu_torch.geometry import se3 as se3m
     from deepfactors_tpu_torch.geometry.se3 import SE3
+    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
+    src, dst, active = factor_set(K, P, dev, seed=10 + P)
+    if P <= 2:
+        active = torch.ones(P, dtype=torch.int32, device=dev)
+    sl, dl = src.long(), dst.long()
+    pose_10 = perturb(se3m.relative_pose(SE3(q[dl], t[dl]),
+                                         SE3(q[sl], t[sl])), seed=20 + P)
+    kp = sg.make_sfm_params(pose_10, cam, 1, 0.0, 0.3, 2.0)
+    return (kp, src, dst, planes["img"], planes["dpt"], planes["img"]), active
+
+
+def gate_case(dev, lv, cam, q, t):
+    """The keyframe gate's call (P = 2): both depth hypotheses of the new
+    keyframe (keyframe 0's image, its depth and 1.05 times it) against the
+    newest keyframe's image, on one level ``lv``."""
+    import torch
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
+    two = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    zero2 = torch.zeros(2, dtype=torch.int32, device=dev)
+    pose_10 = perturb(se3m.relative_pose(SE3(q[1:2], t[1:2]),
+                                         SE3(q[0:1], t[0:1])), seed=31)
+    kp = sg.make_sfm_params(SE3(pose_10.q.expand(2, 4), pose_10.t.expand(2, 3)),
+                            cam, 1, 0.0, 0.3, 2.0)
+    return (kp, two, zero2, lv["img"][0].expand(2, -1, -1).contiguous(),
+            torch.stack([lv["dpt"][0], 1.05 * lv["dpt"][0]]),
+            lv["img"][1:2].contiguous())
+
+
+def phase_error_kernels(dev, K, cams, levels, q, t, empty_ms):
+    """sfm_error_batch and se3_warp_batch against their twins at perturbed
+    poses: at one P for every distinct launch plan of P = 1..128 (and P =
+    1, 2, 64) at the three pyramid sizes and at ODD_HW and
+    ODD_HW_UNALIGNED; with every factor inactive (outputs and render
+    exactly 0, written over NaN); launched repeatedly (the same bits, also
+    after a launch at another P and size, and with ``active`` left out, as
+    the main path's callers leave it). Then their times at the shapes
+    the main path gives them, beside an empty launch: the keyframe gate
+    (P = 2: two depth hypotheses of one image against one reference), the
+    map dump (P = 64, half the slots live) and one warp render (P = 1)."""
+    import torch
     from deepfactors_tpu_torch.ops.kernels import sfm_error as se
     from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
 
@@ -631,103 +686,141 @@ def phase_error_kernels(dev, K, cams, levels, q, t):
         nbytes = planes * N * 4 + P * (sg.PARAM_DIM + 3 + 2) * 4
         return bound(nbytes, n_on * N * 50)
 
-    for P in (1, 2, 64):
-        src, dst, active = factor_set(K, P, dev, seed=10 + P)
-        if P <= 2:
-            active = torch.ones(P, dtype=torch.int32, device=dev)
-        sl, dl = src.long(), dst.long()
-        pose_10 = perturb(se3m.relative_pose(SE3(q[dl], t[dl]),
-                                             SE3(q[sl], t[sl])), seed=20 + P)
-        off = active == 0
-        for l, lv in enumerate(levels):
-            kp = sg.make_sfm_params(pose_10, cams[l], 1, 0.0, 0.3, 2.0)
-            args = (kp, src, dst, lv["img"], lv["dpt"], lv["img"])
-            hw = "x".join(map(str, lv["img"].shape[1:]))
-            rk, ik = se.sfm_error_batch(*args, active=active)
-            rp, ip_ = se.sfm_error_batch_plain(*args, active=active)
-            wk, rwk, iwk = se.se3_warp_batch(*args, active=active)
-            wp_, rwp, iwp = se.se3_warp_batch_plain(*args, active=active)
-            torch.cuda.synchronize()
-            for name, (a_res, a_inl, b_res, b_inl) in (
-                    ("sfm_error_batch", (rk, ik, rp, ip_)),
-                    ("se3_warp_batch", (rwk, iwk, rwp, iwp))):
-                assert torch.isfinite(a_res).all(), name
-                assert torch.equal(a_inl, b_inl), f"{name}: inliers differ"
-                seen = b_inl > 0
-                assert bool(seen[~off].float().mean() >= 0.5), \
-                    f"{name}: most active factors saw nothing"
-                assert bool((b_res[seen] > 0).all()), f"{name}: zero residual"
-                assert bool((a_res[off] == 0).all() and (a_inl[off] == 0).all()), \
-                    f"{name}: an inactive factor is not zero"
-                rel = float(((a_res - b_res).abs()
-                             / b_res.abs().clamp(min=1e-12))[seen].max())
-                assert rel < ERR_RES_TOL, f"{name}: residual rel err {rel}"
-                worst[name]["res"] = max(worst[name]["res"], rel)
-            d = float((wk - wp_).abs().max())
-            assert d < WARP_ATOL, f"se3_warp_batch: warped differs by {d}"
-            assert bool((wk[off] == 0).all()), "inactive render is not zero"
-            worst["se3_warp_batch"]["abs"] = max(worst["se3_warp_batch"]["abs"], d)
-            worst["sfm_error_batch"]["abs"] = max(
-                worst["sfm_error_batch"]["abs"], float((rk - rp).abs().max()))
-            n_checks += 1
-            if P == 64:      # the map dump: one call per level over the pool
-                bms, by = bound_of(args, active, False)
-                timed["sfm_error_batch"].append(dict(
-                    ms=cuda_ms(lambda: se.sfm_error_batch(*args, active=active)),
-                    plain_ms=cuda_ms(lambda: se.sfm_error_batch_plain(
-                        *args, active=active), iters=5),
-                    bound_ms=bms, bound_by=by,
-                    shape=f"dump P={P} ({int(active.sum())} active) {hw}"))
-            if P == 1:       # one warp render
-                bms, by = bound_of(args, active, True)
-                timed["se3_warp_batch"].append(dict(
-                    ms=cuda_ms(lambda: se.se3_warp_batch(*args, active=active),
-                               iters=100),
-                    plain_ms=cuda_ms(lambda: se.se3_warp_batch_plain(
-                        *args, active=active)),
-                    bound_ms=bms, bound_by=by, shape=f"P=1 {hw}"))
+    case = lambda P, planes, cam: error_case(dev, K, P, planes, cam, q, t)
 
-    # the keyframe gate's shape: both depth hypotheses of the new keyframe
-    # against the newest keyframe, level 0
+    def check(args, active):
+        """Both kernels against their twins on one call's inputs."""
+        nonlocal n_checks
+        rk, ik = se.sfm_error_batch(*args, active=active)
+        rp, ip_ = se.sfm_error_batch_plain(*args, active=active)
+        wk, rwk, iwk = se.se3_warp_batch(*args, active=active)
+        wp_, rwp, iwp = se.se3_warp_batch_plain(*args, active=active)
+        torch.cuda.synchronize()
+        off = active == 0
+        for name, (a_res, a_inl, b_res, b_inl) in (
+                ("sfm_error_batch", (rk, ik, rp, ip_)),
+                ("se3_warp_batch", (rwk, iwk, rwp, iwp))):
+            assert torch.isfinite(a_res).all(), name
+            assert torch.equal(a_inl, b_inl), f"{name}: inliers differ"
+            seen = b_inl > 0
+            assert bool(seen[~off].float().mean() >= 0.5), \
+                f"{name}: most active factors saw nothing"
+            assert bool((b_res[seen] > 0).all()), f"{name}: zero residual"
+            assert bool((a_res[off] == 0).all() and (a_inl[off] == 0).all()), \
+                f"{name}: an inactive factor is not zero"
+            rel = float(((a_res - b_res).abs()
+                         / b_res.abs().clamp(min=1e-12))[seen].max())
+            assert rel < ERR_RES_TOL, f"{name}: residual rel err {rel}"
+            worst[name]["res"] = max(worst[name]["res"], rel)
+        d = float((wk - wp_).abs().max())
+        assert d < WARP_ATOL, f"se3_warp_batch: warped differs by {d}"
+        assert bool((wk[off] == 0).all()), "inactive render is not zero"
+        worst["se3_warp_batch"]["abs"] = max(worst["se3_warp_batch"]["abs"], d)
+        worst["sfm_error_batch"]["abs"] = max(
+            worst["sfm_error_batch"]["abs"], float((rk - rp).abs().max()))
+        n_checks += 1
+        return ik
+
+    crops = {hw: {k: levels[1][k][:, :hw[0], :hw[1]].contiguous()
+                  for k in ("img", "dpt")} for hw in (ODD_HW, ODD_HW_UNALIGNED)}
+    sizes = ([(lv, cams[l]) for l, lv in enumerate(levels)]
+             + [(crop, cams[1]) for crop in crops.values()])
+    n_plans = 0
+    for planes, cam in sizes:
+        H_, W_ = planes["img"].shape[1:]
+        ps = error_plan_ps(H_, W_)
+        n_plans += len(ps)
+        for P in sorted(set(ps) | {1, 2, 64}):
+            check(*case(P, planes, cam))
+
+    # the timed shapes: the map dump (one call per level over the pool) and
+    # one warp render
+    for l, lv in enumerate(levels):
+        hw = "x".join(map(str, lv["img"].shape[1:]))
+        args, active = case(64, lv, cams[l])
+        bms, by = bound_of(args, active, False)
+        timed["sfm_error_batch"].append(dict(
+            ms=cuda_ms(lambda: se.sfm_error_batch(*args, active=active),
+                       iters=100),
+            plain_ms=cuda_ms(lambda: se.sfm_error_batch_plain(
+                *args, active=active), iters=5),
+            bound_ms=bms, bound_by=by,
+            shape=f"dump P=64 ({int(active.sum())} active) {hw}"))
+        args, active = case(1, lv, cams[l])
+        bms, by = bound_of(args, active, True)
+        timed["se3_warp_batch"].append(dict(
+            ms=cuda_ms(lambda: se.se3_warp_batch(*args, active=active),
+                       iters=100),
+            plain_ms=cuda_ms(lambda: se.se3_warp_batch_plain(
+                *args, active=active)),
+            bound_ms=bms, bound_by=by, shape=f"P=1 {hw}"))
+
+    # the keyframe gate's shape, level 0
     lv = levels[0]
-    two = torch.tensor([0, 1], dtype=torch.int32, device=dev)
-    zero2 = torch.zeros(2, dtype=torch.int32, device=dev)
-    pose_10 = perturb(se3m.relative_pose(SE3(q[1:2], t[1:2]),
-                                         SE3(q[0:1], t[0:1])), seed=31)
-    kp = sg.make_sfm_params(SE3(pose_10.q.expand(2, 4), pose_10.t.expand(2, 3)),
-                            cams[0], 1, 0.0, 0.3, 2.0)
-    gate = (kp, two, zero2, lv["img"][0].expand(2, -1, -1).contiguous(),
-            torch.stack([lv["dpt"][0], 1.05 * lv["dpt"][0]]),
-            lv["img"][1:2].contiguous())
-    rk, ik = se.sfm_error_batch(*gate)
-    rp, ip_ = se.sfm_error_batch_plain(*gate)
-    torch.cuda.synchronize()
-    assert torch.equal(ik, ip_) and bool((ik > 0).all())
-    rel = float(((rk - rp).abs() / rp.abs()).max())
-    assert rel < ERR_RES_TOL, f"sfm_error_batch (gate): residual rel err {rel}"
-    worst["sfm_error_batch"]["res"] = max(worst["sfm_error_batch"]["res"], rel)
-    n_checks += 1
-    bms, by = bound_of(gate, torch.ones(2, dtype=torch.int32, device=dev), False)
+    gate = gate_case(dev, lv, cams[0], q, t)
+    ones2 = torch.ones(2, dtype=torch.int32, device=dev)
+    assert bool((check(gate, ones2) > 0).all()), "gate: a hypothesis saw nothing"
+    bms, by = bound_of(gate, ones2, False)
     timed["sfm_error_batch"].insert(0, dict(
         ms=cuda_ms(lambda: se.sfm_error_batch(*gate), iters=100),
         plain_ms=cuda_ms(lambda: se.sfm_error_batch_plain(*gate)),
         bound_ms=bms, bound_by=by,
         shape="gate P=2 " + "x".join(map(str, lv["img"].shape[1:]))))
 
+    # every factor inactive: the outputs are torch.empty, so the kernels
+    # must write the zeros; the memory they get held NaN just before
+    for planes, cam in ((levels[0], cams[0]), (crops[ODD_HW_UNALIGNED], cams[1])):
+        args, _ = case(64, planes, cam)
+        off = torch.zeros(64, dtype=torch.int32, device=dev)
+        torch.full((64,) + tuple(planes["img"].shape[1:]), float("nan"),
+                   device=dev)
+        torch.full((64, 2), float("nan"), device=dev)
+        r, i = se.sfm_error_batch(*args, active=off)
+        w, rw, iw = se.se3_warp_batch(*args, active=off)
+        torch.cuda.synchronize()
+        assert all(bool((x == 0).all()) for x in (r, i, w, rw, iw)), \
+            "all factors inactive: an output is not exactly zero"
+
+    # repeated launches: the same bits, also after a launch at another P and
+    # size (a ticket that was not reset would not give them)
+    main = (gate, ones2)
+    other = case(64, crops[ODD_HW_UNALIGNED], cams[1])
+    for fn in (se.sfm_error_batch, se.se3_warp_batch):
+        first = fn(*main[0], active=main[1])
+        for _ in range(2):
+            again = fn(*main[0], active=main[1])
+            assert all(torch.equal(a, b) for a, b in zip(again, first)), \
+                f"{fn.__name__}: two launches on the same inputs differ"
+        # no ``active`` (the main path's callers): every factor active
+        assert all(torch.equal(a, b) for a, b in zip(fn(*main[0]), first)), \
+            f"{fn.__name__}: active=None differs from all-ones"
+        odd = fn(*other[0], active=other[1])
+        again = fn(*main[0], active=main[1])
+        assert all(torch.equal(a, b) for a, b in zip(again, first)), \
+            f"{fn.__name__}: differs after a launch at another P and size"
+        assert all(torch.equal(a, b) for a, b in zip(
+            fn(*other[0], active=other[1]), odd)), fn.__name__
+    torch.cuda.synchronize()
+
     out = {}
     for name, rows in timed.items():
         w = worst[name]
-        log(f"{name}: {n_checks} checks, inlier counts equal, inactive "
-            f"outputs zero, max rel err residual {w['res']:.3e} (tol "
-            f"{ERR_RES_TOL})" + (f", max abs err render {w['abs']:.3e} (tol "
-                                 f"{WARP_ATOL})" if name == "se3_warp_batch" else ""))
+        log(f"{name}: {n_checks} checks ({n_plans} distinct launch plans of "
+            f"P = 1..128 at {', '.join('x'.join(map(str, p['img'].shape[1:])) for p, _ in sizes)}"
+            f"), inlier counts equal, inactive outputs zero, max rel err "
+            f"residual {w['res']:.3e} (tol {ERR_RES_TOL})"
+            + (f", max abs err render {w['abs']:.3e} (tol {WARP_ATOL})"
+               if name == "se3_warp_batch" else "")
+            + "; all inactive exactly 0; repeated launches bit-identical")
         for r in rows:
-            log(f"{name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-                f"({r['bound_by']})")
+            log(f"{name} at {r['shape']}: kernel {r['ms']:.5f} ms (an empty "
+                f"launch {empty_ms:.5f} ms), plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
         out[name] = dict(rows[0], max_abs_err=w["abs"],
-                         max_rel_err={"res": w["res"]})
+                         max_rel_err={"res": w["res"]}, by_shape=rows,
+                         empty_launch_ms=empty_ms)
     return out
+
 
 def phase_warp_kernels(dev, K, cams, levels, q, t):
     """dense_warp_batch (P = 16, 64 and one chunk of ``sfm_step_batch``)

@@ -18,7 +18,9 @@ One hand-written CUDA source carries both (``csrc/sfm_error.cu``); each has
 a plain PyTorch twin here. Dispatch as in ``sfm_gram``: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs the twin, nothing falls
 back. Every kernel launch adds one to ``LAUNCHES[name]``. Inactive factors
-(``active[p] == 0``) give exact zeros.
+(``active[p] == 0``) give exact zeros. Each call is one launch, with the
+geometry of ``sfm_gram.launch_plan`` and the tickets of ``sfm_gram._tickets``
+(the last block of a factor writes its sums).
 """
 from __future__ import annotations
 
@@ -94,28 +96,32 @@ def _launch(name, params, src, dst, img0_pool, dpt_pool, img1_pool, active,
     P = src.shape[0]
     K, H, W = img0_pool.shape
     K1 = img1_pool.shape[0]
-    active = sg._default_active(active, P, dev)
     f32, i32 = torch.float32, torch.int32
     sg._check(params, "params", f32, (P, sg.PARAM_DIM), dev)
     sg._check(src, "src", i32, (P,), dev)
     sg._check(dst, "dst", i32, (P,), dev)
-    sg._check(active, "active", i32, (P,), dev)
+    if active is not None:      # None: the kernel takes every factor as active
+        active = active.to(i32)
+        sg._check(active, "active", i32, (P,), dev)
     sg._check(img0_pool, "img0_pool", f32, (K, H, W), dev)
     sg._check(dpt_pool, "dpt_pool", f32, (K, H, W), dev)
     sg._check(img1_pool, "img1_pool", f32, (K1, H, W), dev)
-    per, nblk = sg._strips(H * W, 48, 1024)
-    part = torch.empty((P, nblk, 2), dtype=f32, device=dev)
+    plan = sg.launch_plan(name, P, H, W)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part = torch.empty(plan.part_shape, dtype=f32, device=dev)
     out = torch.empty((P, 2), dtype=f32, device=dev)
     warped = (torch.empty((P, H, W), dtype=f32, device=dev) if warp_mode
               else None)
     lib = sg._lib("sfm_error.cu", "sfm_error_launch",
-                  "sfm_error_error_string", 10, 8)
+                  "sfm_error_error_string", 11, 8)
     code = lib.sfm_error_launch(
         sg._ptr(params), sg._ptr(src), sg._ptr(dst), sg._ptr(active),
         sg._ptr(img0_pool), sg._ptr(dpt_pool), sg._ptr(img1_pool),
-        sg._ptr(warped), sg._ptr(part), sg._ptr(out), P, K, K1, H, W, per,
-        nblk, warp_mode,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        sg._ptr(warped), sg._ptr(part), sg._ptr(out),
+        sg._ptr(sg._tickets(dev, stream, P)), P, K, K1, H, W,
+        plan.px_per_blk, plan.nblk, warp_mode, ctypes.c_void_p(stream))
+    if code != 0:
+        sg._drop_tickets(dev, stream)
     sg._raise_on(code, lib, "sfm_error_error_string")
     LAUNCHES[name] += 1
     return warped, out[:, 0], out[:, 1]

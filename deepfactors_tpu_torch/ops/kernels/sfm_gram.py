@@ -19,15 +19,16 @@ Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
 the plain twin. Nothing falls back from one to the other. Every kernel
 launch adds one to ``LAUNCHES[name]``.
 
-Both kernels are one launch a call. ``launch_plan`` owns their geometry in
-plain Python (strips, the 8 x 8 register tiles of the SfM Gram and the
-threads that own them, the map from the kernel's rows to G's, shared memory,
-scratch shapes), so the CPU tests reach what the kernels are handed; the
-sources derive none of it and only hold it against their block size and
-shared memory. A block writes one partial per pixel strip;
-the last block of a factor to finish, found with an integer ticket, sums the
-partials in strip order and writes G, so results are bitwise reproducible.
-The tickets are a buffer per (device, stream), all zero between launches:
+Both kernels, and the two of ``sfm_error.py``, are one launch a call.
+``launch_plan`` owns the geometry of all four in plain Python (strips, the
+8 x 8 register tiles of the SfM Gram and the threads that own them, the map
+from the kernel's rows to G's, shared memory, scratch shapes), so the CPU
+tests reach what the kernels are handed; the sources derive none of it and
+only hold it against their block size and shared memory. A block writes one
+partial per pixel strip; the last block of a factor to finish, found with
+an integer ticket, sums the partials in a fixed order and writes the
+result, so results are bitwise reproducible. The tickets are a buffer per
+(device, stream) that all four kernels share, all zero between launches:
 calls on one stream are ordered, and two streams never share a buffer.
 ``make_sfm_params`` keeps the constant part of its rows on the device.
 
@@ -313,32 +314,30 @@ def _raise_on(code: int, lib, fn_name: str):
         raise RuntimeError(f"CUDA kernel launch failed: {msg} ({code})")
 
 
-def _strips(N: int, max_strips: int, min_px: int):
-    """(pixels per block, blocks) for a strip split of N pixels; strips are
-    whole 256-pixel tiles (the launch geometry of csrc/sfm_error.cu)."""
-    per = max(min_px, -(-N // max_strips))
-    per = -(-per // 256) * 256
-    return per, -(-N // per)
-
-
-THREADS = 256            # threads per block of both kernels
+THREADS = 256            # threads per block of all four kernels
 TILE = 8                 # edge of sfm_gram.cu's square register tile
 _REDUCE_ROUND = 32       # accumulators per round of its block reduction
 _STAGE_ROW = THREADS     # floats of one row of its input stage
 _SMEM_MAX = 227 * 1024   # shared memory a block can opt in to on sm_90
 _SM_COUNT = 132          # H100 SXM
-_BLOCKS_PER_SM = 2       # resident blocks of either kernel (registers)
+_BLOCKS_PER_SM = 2       # resident blocks of either Gram kernel (registers)
 _SFM_MAX_STRIPS = 12     # strips per factor at most (sfm_gram_batch)
 _SE3_MAX_PX = 8          # pixels a thread at most (se3_gram_batch)
+# sfm_error.cu: resident blocks an SM (__launch_bounds__(256, 4)), pixels a
+# thread at most (one batch of loads) unless the strips would outnumber a
+# block's threads
+_ERR_BLOCKS_PER_SM = 4
+_ERR_MAX_PX = 4
+_ERR_KERNELS = ("sfm_error_batch", "se3_warp_batch")
 
 
 class LaunchPlan(NamedTuple):
     """How a kernel of this module is launched on one call's shapes."""
 
-    grid: tuple           # blocks of THREADS threads: (strips, P), sfm (P, strips)
+    grid: tuple           # THREADS-thread blocks: (strips, P); sfm_gram (P, strips)
     px_per_blk: int       # pixels of a strip
     nblk: int             # strips per factor
-    R: int                # rows of G
+    R: int                # rows of G (0: the error kernels)
     Rp: int               # R padded up to the register tile
     tiles: tuple          # (block row, block column) of every register tile
     lanes: int            # threads per pixel slice (tile count rounded up)
@@ -367,22 +366,34 @@ def public_row(q: int, CS: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(name: str, P: int, H: int, W: int, CS: int = 0) -> LaunchPlan:
-    """The launch geometry of ``se3_gram_batch`` or ``sfm_gram_batch`` for P
-    factors on H x W planes (code size CS): what the wrappers hand to
-    csrc/se3_gram.cu and csrc/sfm_gram.cu, which derive none of it. Plans
+    """The launch geometry of ``se3_gram_batch``, ``sfm_gram_batch``,
+    ``sfm_error_batch`` or ``se3_warp_batch`` for P factors on H x W planes
+    (code size CS): what the wrappers hand to csrc/se3_gram.cu,
+    csrc/sfm_gram.cu and csrc/sfm_error.cu, which derive none of it. Plans
     are cached by their arguments; the module's constants are read when a
     plan is first made."""
     N = H * W
     slots = _BLOCKS_PER_SM * _SM_COUNT
+    strips1 = -(-N // THREADS)
     if name == "se3_gram_batch":
         # one pixel a thread; more only where the blocks would not all be
         # resident at once
-        strips1 = -(-N // THREADS)
         ppt = min(_SE3_MAX_PX, max(1, -(-strips1 * P // slots)))
         per = THREADS * ppt
         nblk = -(-N // per)
         return LaunchPlan((nblk, P), per, nblk, 8, 8, (), 0, 0, 0, 0, 0, 0, 0,
                           (), (P, nblk, 36), (P,))
+    if name in _ERR_KERNELS:
+        # the same rule with the error kernels' residency; the last block of
+        # a factor reads one strip's partial a thread, so at most THREADS
+        # strips
+        err_slots = _ERR_BLOCKS_PER_SM * _SM_COUNT
+        ppt = min(_ERR_MAX_PX, max(1, -(-strips1 * P // err_slots)))
+        ppt = max(ppt, -(-strips1 // THREADS))
+        per = THREADS * ppt
+        nblk = -(-N // per)
+        return LaunchPlan((nblk, P), per, nblk, 0, 0, (), 0, 0, 0, 0, 0, 0, 0,
+                          (), (P, nblk, 2), (P,))
     if name != "sfm_gram_batch":
         raise ValueError(f"no launch plan for {name!r}")
     if not 1 <= CS <= MAX_CODE_SIZE:

@@ -10,12 +10,14 @@ Tolerances (those of tests/test_sfm_fused.py on the CPU): inlier counts
 exact; residual rtol 1e-3 (fp32 sums in a different order, and the XLA
 reference interpolates as v00·(1-w) + v01·w where the kernels use
 v00 + w·(v01 - v00)); warped image atol 1e-5; inactive slots exactly 0."""
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_sfm_gram import T, cams, make_problem, params_both
+from test_torch_sfm_gram import T, _fma32, cams, make_problem, params_both
 
 from deepfactors_tpu.geometry import se3 as jse3
 from deepfactors_tpu.geometry.camera import camera_pyramid as jcam_pyr
@@ -31,6 +33,7 @@ from deepfactors_tpu_torch.mapping import factors as tfct
 from deepfactors_tpu_torch.mapping import map_state as tms
 from deepfactors_tpu_torch.ops import dense_sfm as tds
 from deepfactors_tpu_torch.ops.kernels import sfm_error as tse
+from deepfactors_tpu_torch.ops.kernels import sfm_gram as tsg
 
 torch.set_num_threads(2)
 RES_RTOL, WARP_ATOL = 1e-3, 1e-5
@@ -204,6 +207,113 @@ def test_border_and_min_depth_come_from_the_params_row():
     i1 = tse.sfm_error_batch(k1, *_pools_t(pr))[1]
     i4 = tse.sfm_error_batch(k4, *_pools_t(pr))[1]
     assert torch.all(i4 < i1)
+
+
+# ----------------------------------------------------------------------------
+# what surrounds the CUDA kernels: the plan they are handed, the order of
+# their sums, the tickets after a failed launch. These tests check the plan
+# and the wrapper, not the kernels: those run only on a card, where
+# chip_smoke.py holds them against the twins.
+# ----------------------------------------------------------------------------
+
+def _block_sum(vals):
+    """[THREADS, ...] -> [...]: a warp adds its lanes by the shuffle tree
+    (offsets 16, 8, 4, 2, 1), then the block adds its warps in order; fp32."""
+    lanes = vals.reshape((tsg.THREADS // 32, 32) + vals.shape[1:]).copy()
+    for off in (16, 8, 4, 2, 1):
+        lanes[:, :off] = lanes[:, :off] + lanes[:, off:2 * off]
+    total = np.zeros(vals.shape[1:], np.float32)
+    for w in range(tsg.THREADS // 32):
+        total = total + lanes[w, 0]
+    return total
+
+
+def _kernel_order_sums(e, valid, plan):
+    """(sum e*e, sum valid) per factor [2, P] in csrc/sfm_error.cu's order:
+    each thread fmaf-sums its pixels in order and the block sums its
+    threads (``_block_sum``) into one partial per strip; the last block
+    sums the strips' partials, one a thread, the same way; all in fp32."""
+    P, N = e.shape
+    ee = e.numpy().astype(np.float32)
+    vv = valid.numpy().astype(np.float32)
+    strips = np.zeros((tsg.THREADS, 2, P), np.float32)
+    for blk in range(plan.nblk):
+        begin, end = blk * plan.px_per_blk, min(N, (blk + 1) * plan.px_per_blk)
+        acc = np.zeros((tsg.THREADS, 2, P), np.float32)
+        for first in range(begin, end, tsg.THREADS):
+            n = min(tsg.THREADS, end - first)
+            x = np.zeros((tsg.THREADS, P), np.float32)
+            v = np.zeros((tsg.THREADS, P), np.float32)
+            x[:n], v[:n] = ee[:, first:first + n].T, vv[:, first:first + n].T
+            acc[:, 0] = _fma32(x, x, acc[:, 0])
+            acc[:, 1] = acc[:, 1] + v
+        strips[blk] = _block_sum(acc)
+    return _block_sum(strips)
+
+
+@pytest.mark.parametrize("P", [3, 64])
+@pytest.mark.parametrize("name", ["sfm_error_batch", "se3_warp_batch"])
+def test_error_kernel_summation_order_within_tolerance(monkeypatch, name, P):
+    """The reason for chip_smoke.py's ERR_RES_TOL (1e-4 of the residual,
+    inliers equal): the twin's per-pixel terms summed again in fp32 in the
+    order of the plan the kernel is handed (one pixel a thread and 12
+    strips at P = 3, two pixels and 6 strips at P = 64), against the twin's
+    own sums, at 48x64. It checks the plan and the order, not the kernel."""
+    H, W = 48, 64
+    pr, _, _, _, kt = _problem(H, W, P, seed=6)
+    pr["active"][:] = 1
+    got = {}
+    masked = tse._masked_sums
+
+    def spy(e, valid, active):
+        got["e"], got["valid"] = e, valid
+        return masked(e, valid, active)
+
+    monkeypatch.setattr(tse, "_masked_sums", spy)
+    res, inl = getattr(tse, name)(kt, *_pools_t(pr))[-2:]
+    plan = tsg.launch_plan(name, P, H, W)
+    ppt = 1 if P == 3 else 2
+    assert plan.px_per_blk == 256 * ppt and plan.nblk == 12 // ppt
+    mine = _kernel_order_sums(got["e"], got["valid"], plan)
+    np.testing.assert_array_equal(mine[1], inl.numpy())
+    assert np.all(inl.numpy() > 0)
+    rel = np.abs(mine[0] - res.numpy()) / res.numpy()
+    assert rel.max() < 1e-4
+    assert rel.max() > 0, "the orders should differ in the last bits"
+
+
+def test_failed_error_launch_drops_its_streams_tickets(monkeypatch):
+    """A launch whose library returns an error code raises, counts no
+    launch, and throws away its stream's ticket buffer, so that the next
+    call on that stream starts from zeros. Without ``active`` the kernel is
+    handed a null pointer (every factor active), not a tensor of ones."""
+    pr, _, _, _, kt = _problem(24, 32, 3, seed=2)
+    seen = []
+
+    class FailingLib:
+        def sfm_error_launch(self, *args):
+            assert len(args) == 20
+            seen.append(args[3].value)
+            return 1
+
+        def sfm_error_error_string(self, code):
+            return b"invalid argument"
+
+    monkeypatch.setattr(tsg, "_lib", lambda *a: FailingLib())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: SimpleNamespace(cuda_stream=7))
+    cpu = torch.device("cpu")
+    tsg._TICKETS.clear()
+    for name, mode, active in (("sfm_error_batch", 0, T(pr["active"])),
+                               ("se3_warp_batch", 1, None)):
+        tsg._tickets(cpu, 7, 3)[0] = 1        # what a failed launch may leave
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            tse._launch(name, kt, *_pools_t(pr), active, mode)
+        assert (cpu.index, 7) not in tsg._TICKETS
+        assert not tsg._tickets(cpu, 7, 3).any()
+    assert seen[0] is not None and seen[1] is None
+    assert tse.LAUNCHES == {"sfm_error_batch": 0, "se3_warp_batch": 0}
+    tsg._TICKETS.clear()
 
 
 def test_cpu_tensors_never_launch_the_error_kernels():

@@ -268,22 +268,29 @@ def test_wrappers_reject_unknown_modes():
 # holds them against the twins.
 # ----------------------------------------------------------------------------
 
-SIZES = [(192, 256), (96, 128), (48, 64), (90, 122)]
+SIZES = [(192, 256), (96, 128), (48, 64), (90, 122), (89, 121)]
+ERR_PLAN_CASES = [(name, P, 0) for name in ("sfm_error_batch", "se3_warp_batch")
+                  for P in (1, 2, 3, 16, 64, 128)]
 
 
 @pytest.mark.parametrize("H,W", SIZES)
 @pytest.mark.parametrize("name,P,CS", [("se3_gram_batch", 1, 0),
                                        ("se3_gram_batch", 8, 0),
                                        ("sfm_gram_batch", 128, 32),
-                                       ("sfm_gram_batch", 3, 64)])
+                                       ("sfm_gram_batch", 3, 64)]
+                         + ERR_PLAN_CASES)
 def test_launch_plan_covers_every_pixel_once(name, P, CS, H, W):
     plan = tsg.launch_plan(name, P, H, W, CS)
     N = H * W
     seen = np.zeros(N, np.int32)
+    if name in ("sfm_error_batch", "se3_warp_batch"):
+        # the last block reads one strip's partial a thread
+        assert plan.nblk <= tsg.THREADS and plan.px_per_blk % tsg.THREADS == 0
+        assert plan.part_shape == (P, plan.nblk, 2)
     for blk in range(plan.nblk):
         begin, end = blk * plan.px_per_blk, min(N, (blk + 1) * plan.px_per_blk)
         assert begin < end, "an empty strip"
-        if name == "se3_gram_batch":
+        if name != "sfm_gram_batch":
             # thread t of 256 walks begin + t, begin + t + 256, ...
             for t in range(tsg.THREADS):
                 seen[begin + t:end:tsg.THREADS] += 1
