@@ -14,8 +14,13 @@ Phases, in order (any failure exits non-zero before the final line):
      for every distinct launch plan of P = 1..128 (half the slots inactive)
      at the three sizes and at 90x122 and 89x121, all inactive, launched
      repeatedly, and timed at the keyframe gate, the map dump and one
-     render; dense_warp_batch at P = 16 and 64 and
-     bilinear_warp_planes at C = 3. Times kernel and twin with CUDA events.
+     render; dense_warp_batch at P = 16 and 64; bilinear_warp_planes at
+     C = 1, 3, 4, 5, 9 at every distinct launch plan, through both entries
+     (stacked planes, planes read in place), bit-identical to its twin, timed
+     at C = 3, and the sampling stage of sfm_step in turns with the first
+     design (built from port_tools/variants/bilinear_warp_first.cu); the Gram
+     kernels with no active against all active. Times kernel and twin with
+     CUDA events.
   3. the room256_32v4 decoder forward at 192x256 on the card, held against
      the same module on the CPU.
   4. end to end: the sequential DeepFactors facade on 60 frames of the
@@ -96,6 +101,15 @@ DECODER_TOL = 2e-2
 # (one fp32 expression per pixel, rounded op by op on both sides), NaN in
 # the same places (a sample at a non-finite coordinate).
 DENSE_WARP_ATOL = 1e-6
+# bilinear_warp_planes: plane counts checked (bit-identical to the twin) at
+# every distinct launch plan: the compile-time kernels (1, 3, 4 planes),
+# the general loop (5) and a call that takes two launches (9 > MAX_PLANES)
+BILINEAR_CS = (1, 3, 4, 5, 9)
+# The first design of bilinear_warp_planes, built beside the kernels and
+# timed in turns with the port's in the sampling stage of sfm_step
+FIRST_BILINEAR_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "port_tools", "variants",
+                                  "bilinear_warp_first.cu")
 H, W = 192, 256
 N_FRAMES = 60
 # Device milliseconds of the two Gram kernels' first design (two launches
@@ -175,6 +189,31 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def start_variant_build(src, lib):
+    """Start nvcc on a source outside csrc/ (an earlier design, timed beside
+    a kernel) with the port's flags and csrc/ on the include path; returns
+    the running process."""
+    from deepfactors_tpu_torch.ops.kernels import build
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    return subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", lib,
+         src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_variant_build(proc, lib, fn, nptr, nint):
+    """Wait for ``start_variant_build``'s nvcc and return the C function
+    ``fn`` of the library (nptr pointers, nint ints, then the stream)."""
+    import ctypes
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {lib}:\n{text}")
+    f = getattr(ctypes.CDLL(lib), fn)
+    f.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * nint
+                  + [ctypes.c_void_p])
+    f.restype = ctypes.c_int
+    return f
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -287,7 +326,7 @@ def block_errs(Gk, Gp, DB):
                 g=rel(Gk, Gp), abs=float((Gk - Gp).abs().max()))
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, first_design=None):
     import torch
     from deepfactors_tpu_torch.geometry import se3 as se3m
     from deepfactors_tpu_torch.geometry.camera import camera_pyramid
@@ -440,7 +479,8 @@ def phase_kernels(dev):
         f"{ODD_HW_UNALIGNED[0]}x{ODD_HW_UNALIGNED[1]} (CS 32, 5), at the "
         f"mapper's batch sizes P = {MAPPER_BUCKETS} and tracking batches "
         f"P = {SE3_EXTRA_P} at the three levels, P = 1, all "
-        f"factors inactive (G exactly 0); repeated launches bit-identical, also "
+        f"factors inactive (G exactly 0); no active bit-identical to all "
+        f"active at P = 1 and 128; repeated launches bit-identical, also "
         f"after a launch at another P and size")
     timed = ([("se3_gram_batch", r) for r in p8_sampled]
              + [(name, r) for name, v in results.items() for r in v])
@@ -463,7 +503,8 @@ def phase_kernels(dev):
     for name, per_level in results.items():
         out[name]["by_level"] = per_level
     out.update(phase_error_kernels(dev, K, cams, levels, q, t, empty_ms))
-    out.update(phase_warp_kernels(dev, K, cams, levels, q, t))
+    out.update(phase_warp_kernels(dev, K, cams, levels, q, t, empty_ms,
+                                  first_design))
     return out
 
 
@@ -583,6 +624,21 @@ def gram_edge_checks(dev, K, cams, levels, q, t, record):
     assert bool((G0 == 0).all()) and bool((G8 == 0).all()), \
         "all factors inactive: G is not zero"
     assert bool((sg.sfm_gram_batch_plain(*args, **kw) == 0).all())
+    # no active (null in the kernel) is every factor active: the same bits
+    # as an explicit all-ones active
+    on = lambda P: torch.ones(P, dtype=torch.int32, device=dev)
+    for P in (1, 128):
+        for name, fn, (a_, kw_) in (
+                ("sfm_gram_batch", sg.sfm_gram_batch,
+                 sfm_case(P, levels[0], cams[0], 32, "tukey", "interp", True,
+                          active=on(P))),
+                ("se3_gram_batch", sg.se3_gram_batch,
+                 se3_case(P, levels[0], cams[0], "sampled", active=on(P)))):
+            G_on = fn(*a_, **kw_)
+            G_none = fn(*a_, **dict(kw_, active=None))
+            torch.cuda.synchronize()
+            assert torch.equal(G_none, G_on), \
+                f"{name}: no active differs from all active at P = {P}"
     # repeated launches: the same bits, also after another P and size
     main_sfm = sfm_case(128, levels[0], cams[0], 32, "tukey", "interp", True)
     odd_sfm = sfm_case(1, crop, cams[1], 8, "huber", "sampled", False,
@@ -822,28 +878,224 @@ def phase_error_kernels(dev, K, cams, levels, q, t, empty_ms):
     return out
 
 
-def phase_warp_kernels(dev, K, cams, levels, q, t):
-    """dense_warp_batch (P = 16, 64 and one chunk of ``sfm_step_batch``)
-    and bilinear_warp_planes (C = 3) against their twins at the three
-    pyramid sizes, at perturbed poses. The first two rows of every source
-    depth are set so that tptz is 0 to rounding there: the coordinates are
-    huge or not finite, and the kernel must still read inside its planes
-    and agree with the twin."""
+def warp_diff(a, b):
+    """max |a - b| where both are finite; NaN must sit in the same places,
+    an infinity must be the same infinity."""
+    import torch
+    assert torch.equal(torch.isnan(a), torch.isnan(b)), "NaN in other places"
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    assert torch.equal(a[~fin & ~torch.isnan(a)], b[~fin & ~torch.isnan(b)])
+    return float((a[fin] - b[fin]).abs().max())
+
+
+def tptz_zero_rows(kp, dpt, cam):
+    """Set rows 0 and 1 of the source depths dpt [P, h, w], in place, to
+    the depth at which R[2]·pt + t_z = 0 under the warp params kp: tptz is
+    0 to rounding there, so the coordinates are huge or not finite."""
+    import torch
+    dev = dpt.device
+    w = dpt.shape[2]
+    ys, xs = torch.meshgrid(
+        torch.arange(2, dtype=torch.float32, device=dev),
+        torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    u = (xs - cam.u0) / cam.fx
+    v = (ys - cam.v0) / cam.fy
+    c = lambda k: kp[:, k, None, None]
+    dpt[:, :2] = -c(11) / (c(6) * u + c(7) * v + c(8))
+
+
+def bilinear_case(dev, K, planes, cam, q, t, seed, with_warp=False):
+    """One factor's sampling stage as ``sfm_step`` holds it: the target
+    image img1 [h, w], its Sobel planes interleaved as grad1 [h, w, 2], and
+    the warped coordinates x1, y1 [h, w] of a perturbed pose, rows 0 and 1
+    at tptz ~ 0. ``with_warp``: also dense_warp_batch's samples of the
+    three planes [3, h, w] for the same factor (its kernel on a card)."""
+    import torch
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+    from deepfactors_tpu_torch.ops.kernels import dense_warp as dw
+    src, dst, _ = factor_set(K, 1, dev, seed=seed)
+    sl, dl = src.long(), dst.long()
+    pose = perturb(se3m.relative_pose(SE3(q[dl], t[dl]), SE3(q[sl], t[sl])),
+                   seed=seed + 1)
+    kp = dw.make_warp_params(pose, cam, 2, 0.0)
+    dpt = planes["dpt"][sl].clone()
+    tptz_zero_rows(kp, dpt, cam)
+    img1, gx, gy = (planes[k][dl] for k in ("img", "gx", "gy"))
+    op = dw.dense_warp_batch_plain(kp, dpt, img1, gx, gy)
+    x1 = (cam.fx * op[3][0] / op[5][0] + cam.u0).contiguous()
+    y1 = (cam.fy * op[4][0] / op[5][0] + cam.v0).contiguous()
+    grad1 = torch.stack([gx[0], gy[0]], dim=-1).contiguous()
+    case = (img1[0].contiguous(), grad1, x1, y1)
+    if with_warp:
+        case += (torch.stack(dw.dense_warp_batch(kp, dpt, img1, gx, gy)[:3])
+                 [:, 0],)
+    return case
+
+
+def first_design_kernel(first_design, chans, x1, y1):
+    """The first design's kernel (``first_design``, its C launcher) on
+    planes chans [C, h, w] stacked beforehand."""
+    import torch
+    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
+    out = torch.empty_like(chans)
+    C, h, w = chans.shape
+    code = first_design(sg._ptr(chans), sg._ptr(x1), sg._ptr(y1),
+                        sg._ptr(out), C, h, w,
+                        torch.cuda.current_stream().cuda_stream)
+    assert code == 0, code
+    return out
+
+
+def first_design_stage(first_design, img1, grad1, x1, y1):
+    """The sampling stage of ``sfm_step`` as the first design ran it: the
+    caller stacks img1 and the two gradient channels, then the first kernel
+    (``first_design``, its C launcher) samples the stack."""
+    import torch
+    return first_design_kernel(
+        first_design, torch.stack([img1, grad1[..., 0], grad1[..., 1]]), x1,
+        y1)
+
+
+def bilinear_checks(dev, K, cams, levels, q, t, empty_ms, first_design):
+    """bilinear_warp_planes against its twin at every distinct launch plan
+    (the three pyramid sizes and ODD_HW_UNALIGNED), C in BILINEAR_CS,
+    through both entries (stacked planes; planes read in place at strides
+    1, 2 and 6), at coordinates off every side and huge or not finite in
+    the tptz ~ 0 rows: bit-identical, NaN in the same places, repeated
+    launches the same bits. Then the times: the kernel at C = 3 at the
+    three sizes beside its twin and F.grid_sample, and, given
+    ``first_design`` (the first kernel's C launcher), the sampling stage of
+    ``sfm_step`` at 192x256 in turns with the first design's call pattern.
+    Returns (max abs err, timed rows, checks, the in-context row or None)."""
     import torch
     import torch.nn.functional as F
+    from deepfactors_tpu_torch.ops import dense_sfm as ds
+    from deepfactors_tpu_torch.ops.kernels import dense_warp as dw
+
+    def same_bits(a, b, what):
+        nan = torch.isnan(a)
+        assert torch.equal(nan, torch.isnan(b)), f"{what}: NaN in other places"
+        assert torch.equal(a[~nan], b[~nan]), f"{what}: not bit-identical"
+
+    crop = {k: levels[1][k][:, :ODD_HW_UNALIGNED[0], :ODD_HW_UNALIGNED[1]]
+            .contiguous() for k in ("img", "dpt", "gx", "gy")}
+    sizes = [(lv, cams[l]) for l, lv in enumerate(levels)] + [(crop, cams[1])]
+    g = torch.Generator(device="cpu").manual_seed(17)
+    worst, n, rows, cases = 0.0, 0, [], []
+    for i, (lv, cam) in enumerate(sizes):
+        img1, grad1, x1, y1, warped = bilinear_case(dev, K, lv, cam, q, t,
+                                                    60 + i, with_warp=True)
+        h, w = img1.shape
+        edge = x1[:2]
+        assert not bool(torch.isfinite(edge).all()) or \
+            float(edge.abs().max()) > 1e6, "tptz ~ 0 was not reached"
+        extra = torch.rand((h, w, 6), generator=g).to(dev)
+        pool = ([img1, grad1[..., 0], grad1[..., 1]]
+                + [extra[..., k] for k in range(6)])
+        cases.append((img1, grad1, x1, y1))
+        for C in BILINEAR_CS:
+            planes = pool[:C]
+            chans = torch.stack(planes)
+            bp = dw.bilinear_warp_planes_plain(chans, x1, y1)
+            bk = dw.bilinear_warp_planes(chans, x1, y1)
+            bl = dw.bilinear_warp_plane_list(planes, x1, y1)
+            torch.cuda.synchronize()
+            what = f"bilinear_warp_planes C={C} {h}x{w}"
+            same_bits(bk, bp, what)
+            same_bits(bl, bp, what + " (planes in place)")
+            worst = max(worst, warp_diff(bk, bp), warp_diff(bl, bp))
+            for _ in range(2):
+                same_bits(dw.bilinear_warp_plane_list(planes, x1, y1), bl,
+                          what + ": a repeated launch")
+            n += 2
+            if C == 3:
+                # the same samples as dense_warp_batch at the same warp
+                assert warp_diff(bl, warped) <= DENSE_WARP_ATOL, \
+                    f"{what}: differs from dense_warp_batch's samples"
+
+    for img1, grad1, x1, y1 in cases[:3]:
+        h, w = img1.shape
+        N = h * w
+        chans = torch.stack([img1, grad1[..., 0], grad1[..., 1]])
+        # the nearest PyTorch call; not the same function at the last row
+        # and column, where it blends and the kernel does not
+        grid = torch.stack([2 * x1 / (w - 1) - 1, 2 * y1 / (h - 1) - 1],
+                           dim=-1)[None].nan_to_num(0.0, 2.0, -2.0)
+        lib = lambda: F.grid_sample(chans[None], grid, mode="bilinear",
+                                    padding_mode="border", align_corners=True)
+        inside = ((x1 >= 0) & (x1 < w - 1) & (y1 >= 0) & (y1 < h - 1))
+        bk = dw.bilinear_warp_planes(chans, x1, y1)
+        lib_d = float((lib()[0] - bk)[:, inside].abs().max())
+        C = chans.shape[0]
+        bms, by = bound((2 * C + 2) * N * 4, 30 * N * C)
+        rows.append(dict(
+            ms_is="back-to-back programmatic dependent launches: each "
+            "overlaps its predecessor, so below an empty launch; designs are "
+            "compared by in_context",
+            ms=cuda_ms(lambda: dw.bilinear_warp_planes(chans, x1, y1),
+                       iters=100),
+            plain_ms=cuda_ms(lambda: dw.bilinear_warp_planes_plain(
+                chans, x1, y1)),
+            bound_ms=bms, bound_by=by, library_ms=cuda_ms(lib, iters=100),
+            shape=f"C={C} {h}x{w}", grid_sample_max_abs_diff_inside=lib_d))
+
+    ctx = None
+    if first_design is not None:
+        # the sampling stage of sfm_step after the two PyTorch ops that
+        # write its coordinates (pix1x = ... + u0, pix1y = ... + v0): a
+        # dependent launch overlaps their tail, so the stage is timed there
+        img1, grad1, x1, y1 = cases[0]
+        h, w = img1.shape
+        u0, v0 = cams[0].u0, cams[0].v0
+        xr, yr = x1 - u0, y1 - v0
+        bx, by = torch.empty_like(x1), torch.empty_like(y1)
+        adds = lambda: (torch.add(xr, u0, out=bx), torch.add(yr, v0, out=by))
+        first = lambda: (adds(), first_design_stage(first_design, img1, grad1,
+                                                    bx, by))[1]
+        new = lambda: (adds(), ds._sample_img_grad_xy(
+            img1, grad1, bx.reshape(-1), by.reshape(-1), "sampled"))[1]
+        a, b = first(), torch.stack(new())
+        torch.cuda.synchronize()
+        same_bits(b.reshape(a.shape), a, "sampling stage, first vs new design")
+        us = lambda f: 1e3 * cuda_ms(f, iters=100)
+        t_first = [us(first)]
+        t_new = [us(new), us(new)]
+        t_first.append(us(first))
+        t_adds = us(adds)
+        ctx = dict(shape=f"two coordinate adds + the sampling stage of "
+                   f"sfm_step, C=3 {h}x{w}", first_design_us=t_first,
+                   new_us=t_new, adds_alone_us=t_adds,
+                   first_stage_less_adds_us=[x - t_adds for x in t_first],
+                   new_stage_less_adds_us=[x - t_adds for x in t_new],
+                   empty_launch_us=1e3 * empty_ms,
+                   bound_us=1e3 * bound(8 * h * w * 4, 90 * h * w)[0],
+                   order="first, new, new, first, adds")
+        log(f"bilinear_warp_planes in context ({ctx['shape']}), in turns "
+            f"first / new / new / first: {t_first[0]:.2f} / {t_new[0]:.2f} / "
+            f"{t_new[1]:.2f} / {t_first[1]:.2f} us, the two adds alone "
+            f"{t_adds:.2f} us (first design: torch.stack + its kernel; new: "
+            f"one dependent launch, planes in place); an empty launch "
+            f"{1e3 * empty_ms:.2f} us, the stage's bound "
+            f"{ctx['bound_us']:.3f} us")
+    return worst, rows, n, ctx
+
+
+def phase_warp_kernels(dev, K, cams, levels, q, t, empty_ms,
+                       first_design=None):
+    """dense_warp_batch (P = 16, 64 and one chunk of ``sfm_step_batch``)
+    against its twin at the three pyramid sizes, at perturbed poses, then
+    bilinear_warp_planes (``bilinear_checks``). The first two rows of every
+    source depth are set so that tptz is 0 to rounding there: the
+    coordinates are huge or not finite, and the kernel must still read
+    inside its planes and agree with the twin."""
+    import torch
     from deepfactors_tpu_torch.geometry import se3 as se3m
     from deepfactors_tpu_torch.geometry.se3 import SE3
     from deepfactors_tpu_torch.ops import dense_sfm as ds
     from deepfactors_tpu_torch.ops.kernels import dense_warp as dw
     from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
-
-    def diff(a, b):
-        """max |a - b| where both are finite; NaN must sit in the same
-        places, an infinity must be the same infinity."""
-        assert torch.equal(torch.isnan(a), torch.isnan(b)), "NaN in other places"
-        fin = torch.isfinite(a) & torch.isfinite(b)
-        assert torch.equal(a[~fin & ~torch.isnan(a)], b[~fin & ~torch.isnan(b)])
-        return float((a[fin] - b[fin]).abs().max())
+    diff = warp_diff
 
     worst = dict.fromkeys(dw.LAUNCHES, 0.0)
     timed = {n: [] for n in dw.LAUNCHES}
@@ -859,14 +1111,7 @@ def phase_warp_kernels(dev, K, cams, levels, q, t):
             N = h * w
             kp = dw.make_warp_params(pose_10, cams[l], 2, 0.0)
             dpt = lv["dpt"][sl].clone()
-            # depth at which R[2]·pt + t_z = 0 for the pixels of rows 0, 1
-            ys, xs = torch.meshgrid(
-                torch.arange(2, dtype=torch.float32, device=dev),
-                torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
-            u = (xs - cams[l].u0) / cams[l].fx
-            v = (ys - cams[l].v0) / cams[l].fy
-            c = lambda k: kp[:, k, None, None]
-            dpt[:, :2] = -c(11) / (c(6) * u + c(7) * v + c(8))
+            tptz_zero_rows(kp, dpt, cams[l])
             args = (kp, dpt, lv["img"][dl], lv["gx"][dl], lv["gy"][dl])
             ok = dw.dense_warp_batch(*args)
             op = dw.dense_warp_batch_plain(*args)
@@ -890,53 +1135,33 @@ def phase_warp_kernels(dev, K, cams, levels, q, t):
                                  iters=5),
                 bound_ms=bms, bound_by=by, library_ms=None,
                 shape=f"P={P} {h}x{w}"))
-            if P != 16:
-                continue
-            # bilinear_warp_planes at the first factor's coordinates (the
-            # rows at tptz ~ 0 included), as ``sfm_step`` calls it
-            x1 = (cams[l].fx * op[3][0] / op[5][0] + cams[l].u0).contiguous()
-            y1 = (cams[l].fy * op[4][0] / op[5][0] + cams[l].v0).contiguous()
-            chans = torch.stack([a[0] for a in args[2:]])
-            bk = dw.bilinear_warp_planes(chans, x1, y1)
-            bp = dw.bilinear_warp_planes_plain(chans, x1, y1)
-            torch.cuda.synchronize()
-            d = diff(bk, bp)
-            assert d <= DENSE_WARP_ATOL, f"bilinear_warp_planes differs by {d}"
-            assert diff(bk, torch.stack([a[0] for a in ok[:3]])) <= DENSE_WARP_ATOL
-            worst["bilinear_warp_planes"] = max(worst["bilinear_warp_planes"], d)
-            # the nearest PyTorch call; not the same function at the last
-            # row and column, where it blends and the kernel does not
-            grid = torch.stack([2 * x1 / (w - 1) - 1, 2 * y1 / (h - 1) - 1],
-                               dim=-1)[None].nan_to_num(0.0, 2.0, -2.0)
-            lib = lambda: F.grid_sample(chans[None], grid, mode="bilinear",
-                                        padding_mode="border",
-                                        align_corners=True)
-            inside = ((x1 >= 0) & (x1 < w - 1) & (y1 >= 0) & (y1 < h - 1))
-            lib_d = float((lib()[0] - bk)[:, inside].abs().max())
-            C = chans.shape[0]
-            bms, by = bound((2 * C + 2) * N * 4, 30 * N * C)
-            timed["bilinear_warp_planes"].append(dict(
-                ms=cuda_ms(lambda: dw.bilinear_warp_planes(chans, x1, y1),
-                           iters=100),
-                plain_ms=cuda_ms(lambda: dw.bilinear_warp_planes_plain(
-                    chans, x1, y1)),
-                bound_ms=bms, bound_by=by, library_ms=cuda_ms(lib, iters=100),
-                shape=f"C={C} {h}x{w}", grid_sample_max_abs_diff_inside=lib_d))
+
+    worst["bilinear_warp_planes"], timed["bilinear_warp_planes"], n_bil, ctx = \
+        bilinear_checks(dev, K, cams, levels, q, t, empty_ms, first_design)
 
     out = {}
     for name, rows in timed.items():
-        log(f"{name}: {n_checks if name == 'dense_warp_batch' else len(rows)} "
-            f"checks, valid equal, NaN in the same places, max abs err "
-            f"{worst[name]:.3e} (tol {DENSE_WARP_ATOL})")
+        if name == "dense_warp_batch":
+            log(f"{name}: {n_checks} checks, valid equal, NaN in the same "
+                f"places, max abs err {worst[name]:.3e} (tol {DENSE_WARP_ATOL})")
+        else:
+            log(f"{name}: {n_bil} checks (C = {BILINEAR_CS} at the three "
+                f"pyramid sizes and {ODD_HW_UNALIGNED[0]}x"
+                f"{ODD_HW_UNALIGNED[1]}, stacked and in place), bit-identical "
+                f"to the twin (max abs err {worst[name]:.1e}), NaN in the same "
+                f"places, repeated launches the same bits")
         for r in rows:
             log(f"{name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
                 f"({r['bound_by']})"
                 + (f", F.grid_sample {r['library_ms']:.4f} ms (differs by "
                    f"{r['grid_sample_max_abs_diff_inside']:.2e} inside the image)"
-                   if r["library_ms"] is not None else ""))
+                   if r["library_ms"] is not None else "")
+                + (f"; kernel time: {r['ms_is']}" if "ms_is" in r else ""))
         out[name] = dict(rows[0], max_abs_err=worst[name],
                          max_rel_err=None, by_shape=rows)
+    if ctx is not None:
+        out["bilinear_warp_planes"]["in_context"] = ctx
     return out
 
 
@@ -1475,14 +1700,19 @@ def main():
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    first_lib = os.path.join(str(build.build_dir()), "bilinear_warp_first.so")
+    first_build = start_variant_build(FIRST_BILINEAR_SRC, first_lib)
     build_s = build.build_all(ptxas_verbose=args.ptxas)
+    first_design = finish_variant_build(first_build, first_lib,
+                                        "bilinear_warp_first_launch", 4, 3)
     log(f"kernel build: {build_s:.2f} s "
-        + str({k: round(v['seconds'], 2) for k, v in build.build_log.items()}))
+        + str({k: round(v['seconds'], 2) for k, v in build.build_log.items()})
+        + f"; the first bilinear_warp_planes design beside it")
     if args.ptxas:
         for src, v in build.build_log.items():
             log(f"--- {src}\n{v['ptxas']}")
 
-    kern = phase_kernels(dev)
+    kern = phase_kernels(dev, first_design)
     decoder = phase_decoder(dev)
     launches_e2e = phase_e2e(dev, decoder)
     launches = phase_long_run(dev, decoder)
@@ -1525,7 +1755,8 @@ def main():
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"), "shape": r["shape"],
                      **{k: r[k] for k in ("by_level", "by_shape",
-                                          "p8_sampled", "empty_launch_ms")
+                                          "p8_sampled", "empty_launch_ms",
+                                          "ms_is", "in_context")
                         if k in r}})
     log(json.dumps({"kernels": rows}))
     log(smi)

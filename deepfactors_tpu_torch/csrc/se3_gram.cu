@@ -31,6 +31,7 @@
 //    The ticket buffer belongs to the wrapper, one per stream; calls on one
 //    stream are ordered, so a ticket is always 0 when a launch starts.
 //  - Inactive factors (active[p] == 0) skip all work; block 0 writes G = 0.
+//    A null active takes every factor as active.
 //  - fp32 throughout, no tensor cores: the per-pixel warp math rounds op by
 //    op (built with --fmad=false, like the plain PyTorch twin) and the Gram
 //    accumulation uses explicit fmaf().
@@ -102,7 +103,7 @@ se3_gram_kernel(const float* __restrict__ params, const int* __restrict__ src,
   const int tid = threadIdx.x;
   // the factor's scalars are loaded before the branch on ``active`` so that
   // all of them are in flight at once
-  const int on = active[p];
+  const int on = active ? active[p] : 1;
   const int s = min(max(src[p], 0), K - 1);
   const int d = min(max(dst[p], 0), K1 - 1);
   const dfk::FactorParams f = dfk::load_params(params + p * dfk::kParamDim);

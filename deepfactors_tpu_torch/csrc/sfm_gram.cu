@@ -52,7 +52,8 @@
 //    in a fixed order: the result is bitwise reproducible. The ticket
 //    buffer belongs to the wrapper, one per stream; calls on one stream are
 //    ordered, so a ticket is always 0 when a launch starts.
-//  - Inactive factors skip all work; their block 0 writes G = 0.
+//  - Inactive factors skip all work; their block 0 writes G = 0. A null
+//    active takes every factor as active.
 //  - The geometry has one owner: launch_plan in ops/kernels/sfm_gram.py
 //    hands over the tile table (tile -> block row and column, shared-memory
 //    row -> row of G), lanes, slices, steps, the row stride and the stage
@@ -164,7 +165,7 @@ sfm_gram_kernel(const float* __restrict__ params, const int* __restrict__ src,
   const int blk = blockIdx.y;
   const int tid = threadIdx.x;
   const int R = CS + 8;
-  if (active[p] == 0) {
+  if (active && active[p] == 0) {
     if (blk == 0) {
       float* g = G + (size_t)p * R * R;
       for (int e = tid; e < R * R; e += kThreads) g[e] = 0.0f;

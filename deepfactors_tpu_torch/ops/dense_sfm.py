@@ -12,7 +12,8 @@ feature-major ([D, N]) and reduced with one matmul.
 CUDA kernel on a CUDA tensor, its plain twin on the CPU.
 ``sfm_evaluate_error`` is the eager reference of ``sfm_error_batch``. With
 sampled Sobel gradients (``grad_mode="sampled"``) ``sfm_step`` samples
-through one ``ops/kernels/dense_warp.bilinear_warp_planes`` call and
+through one ``ops/kernels/dense_warp.bilinear_warp_plane_list`` call
+(kernel ``bilinear_warp_planes``, its planes read in place) and
 ``sfm_step_batch`` warps and samples every factor in one
 ``dense_warp_batch`` call; the Jacobians and the JtJ reduction stay batched
 PyTorch (one ``bmm`` over the factor axis).
@@ -162,13 +163,14 @@ def _unrolled_warp_jacobians(warp: DenseWarp, dpt, cam, pose_10, gx, gy,
 def _sample_img_grad_xy(img1, grad1, x1, y1, grad_mode):
     """Sample (img, gx, gy) at warped coords [N]: the exact gradient of the
     bilinear interpolant ('interp'), or img1 and its Sobel planes in one
-    ``bilinear_warp_planes`` call ('sampled')."""
+    ``bilinear_warp_plane_list`` call ('sampled'), which reads img1 and the
+    two channels of the interleaved grad1 [H, W, 2] in place."""
     if grad_mode == "interp":
         return bilinear_sample_grad(img1, torch.stack([x1, y1], dim=-1))
     H, W = img1.shape
-    planes = torch.stack([img1, grad1[..., 0], grad1[..., 1]])
-    s = dw.bilinear_warp_planes(planes, x1.reshape(H, W).contiguous(),
-                                y1.reshape(H, W).contiguous())
+    s = dw.bilinear_warp_plane_list(
+        (img1, grad1[..., 0], grad1[..., 1]),
+        x1.reshape(H, W).contiguous(), y1.reshape(H, W).contiguous())
     return s[0].reshape(-1), s[1].reshape(-1), s[2].reshape(-1)
 
 

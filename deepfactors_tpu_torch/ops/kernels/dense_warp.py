@@ -6,7 +6,10 @@ counterpart of ``deepfactors_tpu/ops/pallas/warp_kernel.py``.
     bilinear samples of img1, gx1, gy1 there:
     (i1, gx, gy, tptx, tpty, tptz, valid), each [P, H, W], valid as 0/1.
   - ``bilinear_warp_planes``: the same sample of C planes at given
-    coordinates, sampled [C, H, W].
+    coordinates, sampled [C, H, W]; ``bilinear_warp_plane_list`` is the
+    same function over a list of [H, W] planes read in place (each at its
+    own element stride, e.g. one channel of an interleaved [H, W, 2]
+    gradient), so the caller stacks nothing.
 
 One hand-written CUDA source carries both (``csrc/dense_warp.cu``); each has
 a plain PyTorch twin here, in the kernel's op order. Dispatch as in
@@ -38,6 +41,9 @@ Tensor = torch.Tensor
 # launch counters of the CUDA kernels (plain-twin calls never count)
 LAUNCHES = {"dense_warp_batch": 0, "bilinear_warp_planes": 0}
 _MAX_GRID_Y = 65535
+# planes a launch of bilinear_warp_planes (csrc/dense_warp.cu's Planes,
+# passed by value); a call with more launches once for every 8
+MAX_PLANES = 8
 
 
 def reset_launch_counts() -> None:
@@ -115,6 +121,18 @@ def bilinear_warp_planes_plain(chans, x1, y1):
                            y1.reshape(1, -1)).reshape(C, H, W)
 
 
+def bilinear_warp_plane_list_plain(planes, x1, y1):
+    """Plain PyTorch version of ``bilinear_warp_plane_list``. Each plane is
+    read as the kernel reads it: H * W values at its element stride
+    (``_plane_stride``) from its first pixel."""
+    H, W = x1.shape
+    flat = [torch.as_strided(t, (H * W,), (_plane_stride(t, f"planes[{k}]", H,
+                                                         W, x1.device),))
+            for k, t in enumerate(planes)]
+    return bilinear_warp_planes_plain(torch.stack(flat).reshape(-1, H, W), x1,
+                                      y1)
+
+
 # ----------------------------------------------------------------------------
 # CUDA kernels
 # ----------------------------------------------------------------------------
@@ -141,22 +159,66 @@ def _dense_warp_cuda(params, dpt0, img1, gx1, gy1):
     return out.unbind(0)
 
 
+def _plane_stride(t: Tensor, name: str, H: int, W: int, device) -> int:
+    """The element stride s of an [H, W] float32 plane whose pixels lie s
+    elements apart in row-major order (strides (W * s, s)): 1 for a
+    contiguous plane, 2 for one channel of a contiguous [H, W, 2]."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected torch.float32")
+    if tuple(t.shape) != (H, W):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{(H, W)}")
+    s = t.stride(1)
+    if s < 1 or t.stride(0) != W * s:
+        raise ValueError(f"{name} has strides {t.stride()}: expected "
+                         f"(W * s, s) for some s >= 1")
+    return s
+
+
+def _bilinear_warp_launch(ptrs, strides, x1, y1, H, W, dev):
+    """Launch csrc/dense_warp.cu on [H, W] planes given as device addresses
+    and element strides: sampled [C, H, W], one launch a group of
+    MAX_PLANES."""
+    C = len(ptrs)
+    if C == 0:
+        raise ValueError("no planes to sample")
+    sg._check(x1, "x1", torch.float32, (H, W), dev)
+    sg._check(y1, "y1", torch.float32, (H, W), dev)
+    plan = sg.launch_plan("bilinear_warp_planes", 1, H, W)
+    out = torch.empty((C, H, W), dtype=torch.float32, device=dev)
+    lib = sg._lib("dense_warp.cu", "bilinear_warp_launch",
+                  "dense_warp_error_string", 5, 5)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    for c0 in range(0, C, MAX_PLANES):
+        n = min(MAX_PLANES, C - c0)
+        code = lib.bilinear_warp_launch(
+            (ctypes.c_void_p * n)(*ptrs[c0:c0 + n]),
+            (ctypes.c_int * n)(*strides[c0:c0 + n]), sg._ptr(x1), sg._ptr(y1),
+            ctypes.c_void_p(out.data_ptr() + 4 * c0 * H * W), n, H, W,
+            plan.px_per_blk, plan.nblk, stream)
+        sg._raise_on(code, lib, "dense_warp_error_string")
+        LAUNCHES["bilinear_warp_planes"] += 1
+    return out
+
+
 def _bilinear_warp_cuda(chans, x1, y1):
     dev = chans.device
     C, H, W = chans.shape
-    f32 = torch.float32
-    sg._check(chans, "chans", f32, (C, H, W), dev)
-    sg._check(x1, "x1", f32, (H, W), dev)
-    sg._check(y1, "y1", f32, (H, W), dev)
-    out = torch.empty((C, H, W), dtype=f32, device=dev)
-    lib = sg._lib("dense_warp.cu", "bilinear_warp_launch",
-                  "dense_warp_error_string", 4, 3)
-    code = lib.bilinear_warp_launch(
-        sg._ptr(chans), sg._ptr(x1), sg._ptr(y1), sg._ptr(out), C, H, W,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    sg._raise_on(code, lib, "dense_warp_error_string")
-    LAUNCHES["bilinear_warp_planes"] += 1
-    return out
+    sg._check(chans, "chans", torch.float32, (C, H, W), dev)
+    base, N = chans.data_ptr(), H * W
+    return _bilinear_warp_launch([base + 4 * k * N for k in range(C)],
+                                 [1] * C, x1, y1, H, W, dev)
+
+
+def _bilinear_warp_list_cuda(planes, x1, y1):
+    dev = x1.device
+    H, W = x1.shape
+    strides = [_plane_stride(t, f"planes[{k}]", H, W, dev)
+               for k, t in enumerate(planes)]
+    return _bilinear_warp_launch([t.data_ptr() for t in planes], strides,
+                                 x1, y1, H, W, dev)
 
 
 # ----------------------------------------------------------------------------
@@ -185,3 +247,13 @@ def bilinear_warp_planes(chans, x1, y1):
     if sg._route(chans) == "cuda":
         return _bilinear_warp_cuda(chans, x1, y1)
     return bilinear_warp_planes_plain(chans, x1, y1)
+
+
+def bilinear_warp_plane_list(planes, x1, y1):
+    """``bilinear_warp_planes`` over a sequence of C planes [H, W], each read
+    in place at its own element stride (strides (W * s, s)): e.g. img1 and
+    the two channels ``grad1[..., 0]``, ``grad1[..., 1]`` of an interleaved
+    [H, W, 2] gradient, with no stacked copy. Sampled [C, H, W]."""
+    if sg._route(x1) == "cuda":
+        return _bilinear_warp_list_cuda(planes, x1, y1)
+    return bilinear_warp_plane_list_plain(planes, x1, y1)

@@ -367,11 +367,11 @@ def public_row(q: int, CS: int) -> int:
 @functools.lru_cache(maxsize=256)
 def launch_plan(name: str, P: int, H: int, W: int, CS: int = 0) -> LaunchPlan:
     """The launch geometry of ``se3_gram_batch``, ``sfm_gram_batch``,
-    ``sfm_error_batch`` or ``se3_warp_batch`` for P factors on H x W planes
-    (code size CS): what the wrappers hand to csrc/se3_gram.cu,
-    csrc/sfm_gram.cu and csrc/sfm_error.cu, which derive none of it. Plans
-    are cached by their arguments; the module's constants are read when a
-    plan is first made."""
+    ``sfm_error_batch``, ``se3_warp_batch`` or ``bilinear_warp_planes`` for
+    P factors on H x W planes (code size CS): what the wrappers hand to
+    csrc/se3_gram.cu, csrc/sfm_gram.cu, csrc/sfm_error.cu and
+    csrc/dense_warp.cu, which derive none of it. Plans are cached by their
+    arguments; the module's constants are read when a plan is first made."""
     N = H * W
     slots = _BLOCKS_PER_SM * _SM_COUNT
     strips1 = -(-N // THREADS)
@@ -394,6 +394,12 @@ def launch_plan(name: str, P: int, H: int, W: int, CS: int = 0) -> LaunchPlan:
         nblk = -(-N // per)
         return LaunchPlan((nblk, P), per, nblk, 0, 0, (), 0, 0, 0, 0, 0, 0, 0,
                           (), (P, nblk, 2), (P,))
+    if name == "bilinear_warp_planes":
+        # one set of coordinates (P = 1), one pixel a thread; no scratch
+        if P != 1:
+            raise ValueError("bilinear_warp_planes samples one set of planes")
+        return LaunchPlan((strips1, 1), THREADS, strips1, 0, 0, (), 0, 0, 0,
+                          0, 0, 0, 0, (), (), ())
     if name != "sfm_gram_batch":
         raise ValueError(f"no launch plan for {name!r}")
     if not 1 <= CS <= MAX_CODE_SIZE:
@@ -499,12 +505,13 @@ def _se3_gram_cuda(params, src, dst, img0_pool, dpt_pool, img1_pool,
     K1 = img1_pool.shape[0]
     if grad_mode not in _GRAD_MODES:
         raise ValueError(f"unknown grad_mode {grad_mode!r}")
-    active = _default_active(active, P, dev)
     f32, i32 = torch.float32, torch.int32
     _check(params, "params", f32, (P, PARAM_DIM), dev)
     _check(src, "src", i32, (P,), dev)
     _check(dst, "dst", i32, (P,), dev)
-    _check(active, "active", i32, (P,), dev)
+    if active is not None:      # None: the kernel takes every factor as active
+        active = active.to(i32)
+        _check(active, "active", i32, (P,), dev)
     _check(img0_pool, "img0_pool", f32, (K, H, W), dev)
     _check(dpt_pool, "dpt_pool", f32, (K, H, W), dev)
     _check(img1_pool, "img1_pool", f32, (K1, H, W), dev)
@@ -546,12 +553,13 @@ def _sfm_gram_cuda(params, src, dst, img0_pool, dpt_pool, jacT_pool,
         raise ValueError(f"unknown grad_mode {grad_mode!r}")
     if loss not in _LOSSES:
         raise ValueError(f"unknown loss {loss!r}")
-    active = _default_active(active, P, dev)
     f32, i32 = torch.float32, torch.int32
     _check(params, "params", f32, (P, PARAM_DIM), dev)
     _check(src, "src", i32, (P,), dev)
     _check(dst, "dst", i32, (P,), dev)
-    _check(active, "active", i32, (P,), dev)
+    if active is not None:      # None: the kernel takes every factor as active
+        active = active.to(i32)
+        _check(active, "active", i32, (P,), dev)
     _check(img0_pool, "img0_pool", f32, (K, H, W), dev)
     _check(dpt_pool, "dpt_pool", f32, (K, H, W), dev)
     _check(jacT_pool, "jacT_pool", f32, (K, CS, H, W), dev)
@@ -605,7 +613,8 @@ def se3_gram_batch(params, src, dst, img0_pool, dpt_pool, img1_pool,
 
     params [P, PARAM_DIM] (make_sfm_params), src/dst [P] int32 slots into
     the keyframe pools img0/dpt [K, H, W] and the live pools
-    img1(/gx1/gy1) [K1, H, W]; active [P] (0 = G is zero)."""
+    img1(/gx1/gy1) [K1, H, W]; active [P] (0 = G is zero; None: every
+    factor active)."""
     if _route(img0_pool) == "cuda":
         return _se3_gram_cuda(params, src, dst, img0_pool, dpt_pool,
                               img1_pool, gx1_pool, gy1_pool, active, grad_mode)

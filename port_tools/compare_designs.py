@@ -13,8 +13,12 @@ these that DIR holds is built and timed:
     dpt, img1, warped, part, out, P, K, K1, H, W, px_per_blk, nblk,
     warp_mode, stream)`` (the first design of sfm_error_batch and
     se3_warp_batch).
-For example, from a commit that holds all three first designs (the last
-one before the Gram kernels became one launch):
+With ``--prev``, bilinear_warp_planes is also timed beside its first design,
+the committed port_tools/variants/bilinear_warp_first.cu (the kernel of
+csrc/dense_warp.cu from commit 2183e17 to 8a9b388: one pixel a thread on
+stacked planes). For example, from a commit that holds all three first
+designs of the Gram and error kernels (the last one before the Gram
+kernels became one launch):
 
     mkdir -p build/prev && git archive <commit> deepfactors_tpu_torch/csrc \\
         | tar -x -C build/prev --strip-components=2
@@ -24,7 +28,11 @@ Shapes are chip_smoke.py's main-path shapes: sfm_gram_batch at P = 128 (64
 active), CS 32, depth from the codes, interp gradients, Tukey at 192x256
 and Huber at 96x128 and 48x64; se3_gram_batch at P = 1 interp and P = 8
 sampled; sfm_error_batch at the keyframe gate (P = 2) and the map dump (P =
-64, 32 active); se3_warp_batch at P = 1; each at the three sizes. Each pair
+64, 32 active); se3_warp_batch at P = 1; bilinear_warp_planes at C = 3 on
+stacked planes; each at the three sizes; and at 192x256 the sampling stage
+of ``sfm_step`` (the first design: torch.stack of img1 and the two gradient
+channels, then its kernel; the port: one launch on the planes in place,
+``dense_sfm._sample_img_grad_xy``). Each pair
 is timed prev, new, new, prev with chip_smoke.cuda_ms and the readings are
 printed with the card's name and power limit, the max difference of the
 two designs' outputs, and the time of an empty launch. ``--ptxas`` prints
@@ -49,8 +57,12 @@ PREV_INTERFACES = {"se3_gram": ("se3_gram_launch", 11, 8),
 
 def build_prev(prev_dir, build):
     """{source stem: loaded library} of every first-design source in
-    ``prev_dir``, each built by its own nvcc, all started together."""
+    ``prev_dir``, each built by its own nvcc, all started together, and
+    {"bilinear_warp_first": its C launcher} from the committed variant."""
+    import chip_smoke as cs
     libs = {}
+    first_lib = os.path.join(prev_dir, "bilinear_warp_first.so")
+    first = cs.start_variant_build(cs.FIRST_BILINEAR_SRC, first_lib)
     procs = []
     for name in PREV_INTERFACES:
         src = os.path.join(prev_dir, f"{name}.cu")
@@ -70,6 +82,8 @@ def build_prev(prev_dir, build):
         fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * nint
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    libs["bilinear_warp_first"] = cs.finish_variant_build(
+        first, first_lib, "bilinear_warp_first_launch", 4, 3)
     return libs
 
 
@@ -97,7 +111,9 @@ def main():
     from deepfactors_tpu_torch.geometry.camera import camera_pyramid
     from deepfactors_tpu_torch.geometry.se3 import SE3
     from deepfactors_tpu_torch.geometry.warping import depth_to_prox
+    from deepfactors_tpu_torch.ops import dense_sfm as ds
     from deepfactors_tpu_torch.ops.kernels import build
+    from deepfactors_tpu_torch.ops.kernels import dense_warp as dw
     from deepfactors_tpu_torch.ops.kernels import sfm_error as se
     from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
 
@@ -106,7 +122,8 @@ def main():
     cs.log(smi)
     build.build_all(ptxas_verbose=args.ptxas)
     if args.ptxas:
-        for src in ("se3_gram.cu", "sfm_gram.cu", "sfm_error.cu"):
+        for src in ("se3_gram.cu", "sfm_gram.cu", "sfm_error.cu",
+                    "dense_warp.cu"):
             cs.log(f"--- {src}\n{build.build_log[src]['ptxas']}")
     prev = build_prev(args.prev, build) if args.prev else {}
     p = sg._ptr
@@ -244,6 +261,38 @@ def main():
                 diff = err_diff(a if mode else (None,) + a, b)
             rows.append(dict(kernel=name, shape=shape, ms=turns(new, old, 100),
                              diff=diff))
+
+    def same_bits(a, b):
+        nan = torch.isnan(b)
+        assert torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan], b[~nan])
+        return "nothing (bit-identical, NaN in the same places)"
+
+    for l, lv in enumerate(levels):
+        img1, grad1, x1, y1 = cs.bilinear_case(dev, K, lv, cams[l], q, t,
+                                               60 + l)
+        chans = torch.stack([img1, grad1[..., 0], grad1[..., 1]])
+        new = lambda: dw.bilinear_warp_planes(chans, x1, y1)
+        old = None
+        if prev:
+            first = prev["bilinear_warp_first"]
+            old = lambda: cs.first_design_kernel(first, chans, x1, y1)
+        diff = same_bits(new(), old()) if old else None
+        rows.append(dict(kernel="bilinear_warp_planes",
+                         shape=f"C=3 {size(lv)}", ms=turns(new, old, 100),
+                         diff=diff))
+        if l == 0:
+            xf, yf = x1.reshape(-1), y1.reshape(-1)
+            new = lambda: torch.stack(ds._sample_img_grad_xy(
+                img1, grad1, xf, yf, "sampled")).reshape(3, *img1.shape)
+            if old:
+                old = lambda: cs.first_design_stage(first, img1, grad1, x1, y1)
+            diff = same_bits(new(), old()) if old else None
+            new = lambda: ds._sample_img_grad_xy(img1, grad1, xf, yf,
+                                                 "sampled")
+            rows.append(dict(kernel="bilinear_warp_planes",
+                             shape=f"sampling stage of sfm_step {size(lv)} "
+                             "(prev: torch.stack + kernel; new: one launch)",
+                             ms=turns(new, old, 100), diff=diff))
 
     f = lambda x: "-" if x is None else f"{1e3 * x:.2f}"
     cs.log("times in us, in the order they were taken: prev, new, new, prev")

@@ -99,6 +99,111 @@ def test_bilinear_weight_is_zero_at_the_last_row_and_column():
     assert np.isfinite(out[:, 0, :2]).all()
 
 
+def _plane_list(C, Hs, Ws, seed):
+    """C planes [Hs, Ws] as a caller holds them: img1 (contiguous), the two
+    channels of an interleaved gradient [Hs, Ws, 2] (stride 2) and, beyond
+    three, channels 0 and 2 of an [Hs, Ws, 3] array (stride 3)."""
+    rng = np.random.RandomState(seed)
+    img = T(rng.rand(Hs, Ws).astype(np.float32))
+    grad = T(rng.standard_normal((Hs, Ws, 2)).astype(np.float32))
+    more = T(rng.rand(Hs, Ws, 3).astype(np.float32))
+    planes = [img, grad[..., 0], grad[..., 1], more[..., 0], more[..., 2]]
+    return planes[:C]
+
+
+def _coords_all_sides(Hs, Ws, seed, special=True):
+    """Coordinates that leave the image on all four sides; with
+    ``special``, also +-inf, NaN and +-3e38 in the first row."""
+    rng = np.random.RandomState(seed)
+    x1 = rng.uniform(-3.0, Ws + 2.0, (Hs, Ws)).astype(np.float32)
+    y1 = rng.uniform(-3.0, Hs + 2.0, (Hs, Ws)).astype(np.float32)
+    assert (x1 < 0).any() and (x1 > Ws - 1).any()
+    assert (y1 < 0).any() and (y1 > Hs - 1).any()
+    if special:
+        odd = np.array([np.inf, -np.inf, np.nan, 3e38, -3e38], np.float32)
+        x1[0, :5] = odd
+        y1[0, 5:10] = odd
+        x1[0, 10:15], y1[0, 10:15] = odd, odd[::-1]
+    return x1, y1
+
+
+@pytest.mark.parametrize("Hs,Ws", [(13, 21), (89, 121)])
+@pytest.mark.parametrize("C", [1, 3, 5])
+def test_bilinear_warp_plane_list_matches_stacked(C, Hs, Ws):
+    """The list entry (planes read in place, at strides 1, 2 and 3) equals
+    ``bilinear_warp_planes`` of the stacked planes bit for bit, NaN in the
+    same places, at coordinates off every side and not finite."""
+    planes = _plane_list(C, Hs, Ws, seed=C)
+    x1, y1 = (T(a) for a in _coords_all_sides(Hs, Ws, seed=10 + C))
+    out = tdw.bilinear_warp_plane_list(planes, x1, y1).numpy()
+    ref = tdw.bilinear_warp_planes(torch.stack(planes), x1, y1).numpy()
+    assert out.shape == (C, Hs, Ws)
+    np.testing.assert_array_equal(out, ref)
+    assert np.isfinite(out[:, 1:]).all()
+
+
+@pytest.mark.parametrize("Hs,Ws", [(13, 21), (89, 121)])
+@pytest.mark.parametrize("C", [1, 3, 5])
+def test_bilinear_warp_plane_list_matches_jax(C, Hs, Ws):
+    """Against the JAX package's XLA reference, at coordinates off all four
+    sides."""
+    planes = _plane_list(C, Hs, Ws, seed=20 + C)
+    x1, y1 = _coords_all_sides(Hs, Ws, seed=30 + C, special=False)
+    out = tdw.bilinear_warp_plane_list(planes, T(x1), T(y1)).numpy()
+    ref, _ = jwk.bilinear_warp_reference(
+        jnp.asarray(np.stack([p.numpy() for p in planes])), jnp.asarray(x1),
+        jnp.asarray(y1))
+    np.testing.assert_allclose(out, np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("C", [1, 3, 5])
+def test_bilinear_warp_plane_list_matches_pallas_at_special_coords(C):
+    """Against the JAX package's Pallas kernel in interpret mode (the XLA
+    reference gives NaN at +inf, where the kernel clamps), at coordinates
+    off all four sides and at +-inf, NaN and +-3e38, at a size that
+    satisfies the Pallas tile rule, where the kernel's band covers the
+    pixel (all but y = +inf and +3e38 of the special ones): NaN in the same
+    places, every other value to ATOL."""
+    planes = _plane_list(C, H, W, seed=40 + C)
+    x1, y1 = _coords_all_sides(H, W, seed=50 + C)
+    out = tdw.bilinear_warp_plane_list(planes, T(x1), T(y1)).numpy()
+    ref, cover = jwk.bilinear_warp_planes(
+        jnp.asarray(np.stack([p.numpy() for p in planes])), jnp.asarray(x1),
+        jnp.asarray(y1), band=H, interpret=True)
+    c = np.asarray(cover) > 0.5
+    assert c.mean() > 0.9
+    ref = np.asarray(ref)[:, c]
+    out = out[:, c]
+    nan = np.isnan(ref)
+    assert nan.any() and not nan.all()
+    np.testing.assert_array_equal(np.isnan(out), nan)
+    np.testing.assert_allclose(out[~nan], ref[~nan], atol=ATOL)
+
+
+@pytest.mark.parametrize("case,stride", [("contiguous", 1), ("channel0", 2),
+                                         ("channel1", 2), ("of_three", 3),
+                                         ("transposed", None),
+                                         ("column", None), ("float64", None),
+                                         ("shape", None)])
+def test_plane_stride_accepts_rows_at_a_constant_stride(case, stride):
+    """What the CUDA path hands the kernel for each plane: its element
+    stride where the plane's pixels lie at one stride in row-major order,
+    an error for anything else."""
+    Hs, Ws = 6, 10
+    grad = torch.zeros(Hs, Ws, 2)
+    t = {"contiguous": torch.zeros(Hs, Ws), "channel0": grad[..., 0],
+         "channel1": grad[..., 1], "of_three": torch.zeros(Hs, Ws, 3)[..., 2],
+         "transposed": torch.zeros(Ws, Hs).T,
+         "column": torch.zeros(Hs, Ws + 1)[:, 1:],
+         "float64": torch.zeros(Hs, Ws, dtype=torch.float64),
+         "shape": torch.zeros(Hs + 1, Ws)}[case]
+    if stride is None:
+        with pytest.raises((ValueError, TypeError)):
+            tdw._plane_stride(t, case, Hs, Ws, t.device)
+    else:
+        assert tdw._plane_stride(t, case, Hs, Ws, t.device) == stride
+
+
 def _warp_problem(P, seed):
     pr = make_problem(H, W, 4, 3, P, seed=seed)
     src, dst = pr["src"], pr["dst"]

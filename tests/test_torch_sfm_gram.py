@@ -277,12 +277,24 @@ ERR_PLAN_CASES = [(name, P, 0) for name in ("sfm_error_batch", "se3_warp_batch")
 @pytest.mark.parametrize("name,P,CS", [("se3_gram_batch", 1, 0),
                                        ("se3_gram_batch", 8, 0),
                                        ("sfm_gram_batch", 128, 32),
-                                       ("sfm_gram_batch", 3, 64)]
+                                       ("sfm_gram_batch", 3, 64),
+                                       ("bilinear_warp_planes", 1, 0)]
                          + ERR_PLAN_CASES)
 def test_launch_plan_covers_every_pixel_once(name, P, CS, H, W):
     plan = tsg.launch_plan(name, P, H, W, CS)
     N = H * W
     seen = np.zeros(N, np.int32)
+    if name == "bilinear_warp_planes":
+        # thread t of 256 takes pixel begin + t; no scratch, no tickets
+        assert plan.px_per_blk == tsg.THREADS
+        assert plan.grid == (plan.nblk, 1)
+        assert plan.part_shape == () and plan.ticket_shape == ()
+        for blk in range(plan.nblk):
+            begin = blk * plan.px_per_blk
+            assert begin < N, "an empty block"
+            seen[begin:min(N, begin + tsg.THREADS)] += 1
+        assert (seen == 1).all()
+        return
     if name in ("sfm_error_batch", "se3_warp_batch"):
         # the last block reads one strip's partial a thread
         assert plan.nblk <= tsg.THREADS and plan.px_per_blk % tsg.THREADS == 0
