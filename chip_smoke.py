@@ -21,16 +21,29 @@ Phases, in order (any failure exits non-zero before the final line):
      design (built from port_tools/variants/bilinear_warp_first.cu); the Gram
      kernels with no active against all active. Times kernel and twin with
      CUDA events.
+  2b. the reprojection operators (plain PyTorch, no kernel of their own) on
+     the card against the port on the CPU, on one rendered 192x256 frame
+     pair with ~90 matches: detect_pyramid (valid keypoints identical,
+     descriptors within 1 bit a keypoint and 2 over both frames), match on
+     identical descriptors (identical), prune_matches_eight_point with the
+     same draws (the same inlier mask but for errors on the threshold),
+     reprojection_system (JtJ and Jtr within REP_SYS_TOL of each block's
+     largest entry, inliers equal); each timed on the card.
   3. the room256_32v4 decoder forward at 192x256 on the card, held against
      the same module on the CPU.
-  4. end to end: the sequential DeepFactors facade on 60 frames of the
-     synthetic room orbit (tools/bench_e2e.py's configuration without loop
-     closure and reprojection factors) in a window of 32 keyframes,
-     bootstrap on frames 0 and 2.
+  4. end to end in the default configuration: the sequential DeepFactors
+     facade with reprojection factors on (tools/bench_e2e.py's
+     configuration without loop closure) on 60 frames of the synthetic
+     room orbit in a window of 32 keyframes, bootstrap on frames 0 and 2;
+     rep factors must be built and assembled into the GN iterations.
+     Keyframe-event latency is split into detection, match + RANSAC and
+     rep assembly per GN iteration.
   5. the long run: the same facade and orbit with the package's default
      window (max_keyframes=16, max_factors=64), 180 frames, so the run
      outlives its window and evicts; then the map dump with per-factor
      errors (sfm_error_batch) and one warp render (se3_warp_batch).
+     Reprojection factors stay off here: with them on, the JAX facade
+     itself loses tracking in this room at frame 70 (PERF.md section 6).
   6. the parallel/ entry points, single card, full width: (a) the dry-run
      BA step (K = 8, CS 32, 16 factors at 192x256) through the kernels,
      against the same step assembled from the plain twins; (b) a large map
@@ -66,11 +79,12 @@ import numpy as np
 # far from zero and a wrong sign or a missing weight shows.
 KERNEL_TOL = 1e-4
 POSE_NOISE = (0.02, 0.005)   # translation (m), rotation (rad) per axis
-# Rigid ATE bound for the 60-frame run, just above both readings it was set
-# from (PERF.md section 2): the JAX facade's own CPU run of the same
-# configuration, 0.0684 m (port_tools/jax_smoke_reference.py), and the
-# port's card runs of this script, 0.0662-0.0673 m.
-ATE_BOUND_M = 0.085
+# Rigid ATE bound for the 60-frame run (phase 4, reprojection factors on),
+# just above both readings it was set from (PERF.md section 2): the JAX
+# facade's own CPU run of the same configuration, 0.0650 m
+# (port_tools/jax_smoke_reference.py --use-reprojection), and the port's
+# card runs of this script, 0.0637-0.0647 m.
+ATE_BOUND_M = 0.08
 # The long run (phase 5) runs the same orbit in random_room(5), the room
 # in which both packages carry 180 frames in a window of 16 along the same
 # path: the JAX facade on the CPU tracks every frame up to 194 and reads, at
@@ -112,6 +126,16 @@ FIRST_BILINEAR_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                   "bilinear_warp_first.cu")
 H, W = 192, 256
 N_FRAMES = 60
+# phase 2b: two frames of the room 7 orbit with ~100 keypoints each and ~90
+# matches between them (the 60-frame run's keyframes hold 10-110), so the
+# RANSAC winner is well conditioned; 128 hypotheses as the mapper draws
+REP_FRAMES = (26, 30)
+REP_RANSAC_ITERS = 128
+# reprojection_system card vs CPU: the same expressions per match on both
+# sides; the (2M x 44) Jacobian reduces by cuBLAS on the card and by the
+# CPU's GEMM, so JtJ and Jtr are held within 1e-4 of each (pose0, pose1,
+# code) block's largest entry
+REP_SYS_TOL = 1e-4
 # Device milliseconds of the two Gram kernels' first design (two launches
 # each: strip partials, then a reduce pass) at the shapes timed below, at
 # 192x256 / 96x128 / 48x64, as chip_smoke.py read them on an NVIDIA H100
@@ -216,18 +240,20 @@ def finish_variant_build(proc, lib, fn, nptr, nint):
     return f
 
 
-def cuda_ms(fn, iters=20, warmup=3):
+def cuda_ms(fn, iters=20, warmup=3, spin_cycles=100_000_000):
     """Device milliseconds per call of ``fn``: CUDA events around ``iters``
-    back-to-back calls. A ~50 ms spin kernel is queued first, so the host
-    has enqueued every call before the first one starts and the events
-    time the device's work, not the Python wrapper's launch rate."""
+    back-to-back calls. A spin kernel (~50 ms at the default
+    ``spin_cycles``) is queued first, so the host has enqueued every call
+    before the first one starts and the events time the device's work, not
+    the Python wrapper's launch rate; a caller whose calls take the host
+    longer to enqueue than the spin lasts passes a longer spin."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
+    torch.cuda._sleep(spin_cycles)
     a.record()
     for _ in range(iters):
         fn()
@@ -1166,6 +1192,184 @@ def phase_warp_kernels(dev, K, cams, levels, q, t, empty_ms,
 
 
 # ----------------------------------------------------------------------------
+# phase 2b: the reprojection operators, card against CPU
+# ----------------------------------------------------------------------------
+
+def _descriptor_bits(a, b):
+    """Bits that differ between two int32 descriptor sets [K, 8], per row."""
+    x = np.bitwise_xor(a.cpu().numpy().view(np.uint32),
+                       b.cpu().numpy().view(np.uint32))
+    return np.unpackbits(x.view(np.uint8), axis=-1).sum(-1)
+
+
+def _block_errs(a, b, CS):
+    """Largest |a - b| of each (pose0, pose1, code) block of JtJ [P, D, D]
+    and Jtr [P, D], each over that block's largest |b|."""
+    cuts = [(0, 6), (6, 12), (12, 12 + CS)]
+    a, b = a.double().cpu(), b.double().cpu()
+    if b.dim() == 2:
+        return max(float((a[:, i:j] - b[:, i:j]).abs().max()
+                         / b[:, i:j].abs().max().clamp(min=1e-30))
+                   for i, j in cuts)
+    return max(float((a[:, i:j, k:l] - b[:, i:j, k:l]).abs().max()
+                     / b[:, i:j, k:l].abs().max().clamp(min=1e-30))
+               for i, j in cuts for k, l in cuts)
+
+
+def phase_rep_ops(dev):
+    """Phase 2b: detection, matching, RANSAC and the reprojection system on
+    the card against the same functions on the CPU, at the main path's
+    shapes (192x256, 3 octaves, 128 keypoints, 128 hypotheses, CS 32)."""
+    import torch
+    from deepfactors_tpu_torch.features import detector as det
+    from deepfactors_tpu_torch.features import matching as mt
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.geometry.camera import PinholeCamera
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+    from deepfactors_tpu_torch.io import synth
+    from deepfactors_tpu_torch.ops import image as ip
+    from deepfactors_tpu_torch.ops import sparse_factors as sf
+
+    cam = PinholeCamera.create(fx=220.0, fy=220.0, u0=W / 2, v0=H / 2,
+                               width=W, height=H)
+    poses = synth.orbit_trajectory(SEQ_LEN, sweep=3.2 * np.pi)
+    pair = [poses[i] for i in REP_FRAMES]
+    frames = synth.render_sequence(synth.random_room(7, n_boxes=3), cam, pair,
+                                   H, W, device="cpu")
+    dcfg = det.DetectorConfig(max_keypoints=128)
+    out = {}
+
+    def timed(name, fn):
+        """Device ms per call behind a ~1 s spin (these plain-PyTorch ops
+        make hundreds of launches a call, so the host needs ~10-20 ms to
+        enqueue one), and host ms per call, each call ending in a
+        synchronise."""
+        out[name] = cuda_ms(fn, iters=10, spin_cycles=2_000_000_000)
+        t = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t.append((time.perf_counter() - t0) * 1e3)
+        out[name + "_host"] = float(np.median(t))
+
+    # detection
+    pyr = {d: [ip.build_pyramid(torch.as_tensor(np.asarray(f), device=d), 3)
+               for f in frames] for d in ("cpu", dev)}
+    feats = {d: [det.detect_pyramid(p, dcfg) for p in pyr[d]]
+             for d in ("cpu", dev)}
+    bits = []
+    for fc, fg in zip(feats["cpu"], feats[dev]):
+        assert torch.equal(fc.valid, fg.valid.cpu()), "keypoint validity"
+        v = fc.valid
+        assert torch.equal(fc.xy[v], fg.xy.cpu()[v]), "keypoint xy"
+        bits.append(_descriptor_bits(fc.descriptor[v], fg.descriptor[v]))
+    nbits = np.concatenate(bits)
+    assert nbits.max(initial=0) <= 1 and nbits.sum() <= 2, nbits
+    n_kp = [int(f.valid.sum()) for f in feats["cpu"]]
+    timed("detect_ms", lambda: det.detect_pyramid(pyr[dev][0], dcfg))
+
+    # matching both ways, on the CPU's descriptors on both sides
+    f0, f1 = feats["cpu"]
+    D0 = torch.stack([f0.descriptor, f1.descriptor])
+    D1 = torch.stack([f1.descriptor, f0.descriptor])
+    V0 = torch.stack([f0.valid, f1.valid])
+    V1 = torch.stack([f1.valid, f0.valid])
+    mc = mt.match(D0, V0, D1, V1, max_dist=30)
+    on = lambda *xs: [x.to(dev) for x in xs]
+    mg = mt.match(*on(D0, V0, D1, V1), max_dist=30)
+    for n in mt.Matches._fields:
+        assert torch.equal(getattr(mc, n), getattr(mg, n).cpu()), f"match {n}"
+    mdev = on(D0, V0, D1, V1)
+    timed("match_ms", lambda: mt.match(*mdev, max_dist=30))
+
+    # RANSAC with the same draws on both sides
+    XY0 = torch.stack([f0.xy, f1.xy])
+    XY1 = torch.gather(torch.stack([f1.xy, f0.xy]), 1,
+                       mc.idx1.long()[..., None].expand(-1, -1, 2))
+    idx = mt.draw_hypotheses(mc.valid, REP_RANSAC_ITERS,
+                             torch.Generator().manual_seed(0))
+    thr = 1e-4
+    ic = mt.prune_matches_eight_point(XY0, XY1, mc.valid, cam, idx=idx,
+                                      threshold=thr)
+    ig = mt.prune_matches_eight_point(*on(XY0, XY1, mc.valid), cam,
+                                      idx=idx.to(dev), threshold=thr).cpu()
+    b0, b1 = mt.bearing_vectors(cam, XY0), mt.bearing_vectors(cam, XY1)
+    gat = lambda b: torch.gather(
+        b[:, None].expand(-1, REP_RANSAC_ITERS, -1, -1), 2,
+        idx[..., None].expand(-1, -1, -1, 3))
+    errs = mt._epipolar_error(mt._essential_from_8(gat(b0), gat(b1)), b0, b1)
+    best = torch.argmax(torch.sum((errs < thr) & mc.valid[:, None], -1), -1)
+    e_best = errs[torch.arange(2), best]
+    near = (e_best - thr).abs() <= 1e-3 * thr
+    assert torch.equal(ic[~near], ig[~near]), "RANSAC inlier masks"
+    gdraw = torch.Generator(device=dev).manual_seed(42)
+    rdev = on(XY0, XY1, mc.valid)
+    timed("ransac_ms", lambda: mt.prune_matches_eight_point(
+        *rdev, cam, idx=mt.draw_hypotheses(rdev[2], REP_RANSAC_ITERS, gdraw),
+        threshold=thr))
+    A = torch.randn((2 * REP_RANSAC_ITERS, 8, 9), device=dev)
+    A9 = torch.cat([A, torch.zeros_like(A[:, :1])], dim=1)
+    timed("svd_8x9_ms", lambda: torch.linalg.svd(A, full_matrices=True))
+    timed("svd_9x9_ms", lambda: torch.linalg.svd(A9, full_matrices=True))
+
+    # the reprojection system of both directions, images in a 2-slot pool
+    rng = np.random.RandomState(3)
+    CS = 32
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    prx = np.stack([0.45 + 0.05 * np.sin(xs / (17 + k)) * np.cos(ys / 13)
+                    for k in range(2)]).astype(np.float32)
+    jac = (0.01 * rng.randn(2, CS, H, W)).astype(np.float32)
+    code = (0.3 * rng.randn(2, CS)).astype(np.float32)
+    pq = np.stack([p.q for p in pair]).astype(np.float32)
+    pt = np.stack([p.t for p in pair]).astype(np.float32)
+    inl = mc.valid & ic
+
+    def rep_args(d, P=2):
+        """The inputs on device ``d``, the pair's two directions repeated
+        to P factors over the same 2-slot image pool."""
+        t = lambda a: torch.as_tensor(np.asarray(a), device=d)
+        rp = lambda x: x.to(d).repeat((P // 2,) + (1,) * (x.dim() - 1))
+        return (SE3(rp(t(pq)), rp(t(pt))),
+                SE3(rp(t(pq[::-1].copy())), rp(t(pt[::-1].copy()))),
+                rp(t(code)), cam, rp(XY0), rp(XY1), rp(inl), t(prx), t(jac),
+                rp(torch.arange(2)))
+
+    def rep_sys(args):
+        *a, src = args
+        return sf.reprojection_system(*a, huber_delta=0.1, sigma=1.0,
+                                      avg_dpt=2.0, src=src)
+
+    rc, rg = rep_sys(rep_args("cpu")), rep_sys(rep_args(dev))
+    err_jtj = _block_errs(rg.JtJ, rc.JtJ, CS)
+    err_jtr = _block_errs(rg.Jtr, rc.Jtr, CS)
+    assert err_jtj <= REP_SYS_TOL and err_jtr <= REP_SYS_TOL, (err_jtj,
+                                                               err_jtr)
+    assert torch.equal(rc.inliers, rg.inliers.cpu()), "rep inliers"
+    assert float(rc.inliers.min()) > 0
+    a2, a32 = rep_args(dev), rep_args(dev, 32)
+    timed("rep_system_ms_p2", lambda: rep_sys(a2))
+    timed("rep_system_ms_p32", lambda: rep_sys(a32))
+    log(f"rep ops: frames {REP_FRAMES} of room 7, keypoints {n_kp}, matches "
+        f"{mc.valid.sum(-1).tolist()}, RANSAC inliers "
+        f"{inl.sum(-1).tolist()} (card == CPU, {int(near.sum())} matches on "
+        f"the threshold), descriptor bits differing card/CPU "
+        f"{int(nbits.sum())}; reprojection_system JtJ {err_jtj:.2e} Jtr "
+        f"{err_jtr:.2e} of each block's max (tol {REP_SYS_TOL})")
+    log("rep ops on the card, device ms / host ms a call: detect_pyramid "
+        "{detect_ms:.3f} / {detect_ms_host:.2f}, match (2 directions) "
+        "{match_ms:.3f} / {match_ms_host:.2f}, draw + RANSAC (2 directions, "
+        "128 hypotheses) {ransac_ms:.3f} / {ransac_ms_host:.2f}, batched SVD "
+        "of 256 8x9 {svd_8x9_ms:.3f} / {svd_8x9_ms_host:.2f} (9x9 "
+        "zero-padded {svd_9x9_ms:.3f} / {svd_9x9_ms_host:.2f}), "
+        "reprojection_system P=2 {rep_system_ms_p2:.3f} / "
+        "{rep_system_ms_p2_host:.2f}, P=32 {rep_system_ms_p32:.3f} / "
+        "{rep_system_ms_p32_host:.2f}".format(**out) + f"; {smi_line()}")
+    return out
+
+
+# ----------------------------------------------------------------------------
 # phase 3: decoder
 # ----------------------------------------------------------------------------
 
@@ -1223,10 +1427,12 @@ def stat(v):
 
 
 def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
-               max_factors, frame_dist_threshold=0.12):
+               max_factors, frame_dist_threshold=0.12, use_reprojection=False):
     """The sequential facade over the first ``n_frames`` of the room orbit,
     bootstrap on frames 0 and 2. Sets the launch counts to 0 first. Returns
-    the facade, the scene's camera and frames, and the run's readings."""
+    the facade, the scene's camera and frames, and the run's readings; with
+    reprojection factors on also the per-event match and inlier counts and
+    the host milliseconds of detection, match + RANSAC and rep assembly."""
     import torch
     from deepfactors_tpu_torch.geometry.camera import PinholeCamera
     from deepfactors_tpu_torch.io import synth
@@ -1245,7 +1451,7 @@ def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
             max_factors=max_factors, code_size=32,
             height=H, width=W, pyramid_levels=3, pho_iters=(4, 8, 15),
             connection_mode="LASTN", max_back_connections=2,
-            use_reprojection=False),
+            use_reprojection=use_reprojection),
         dist_threshold=2.0, tracking_dist_threshold=5.0,
         frame_dist_threshold=frame_dist_threshold, loop_closure=False)
     df = DeepFactors(cfg, cam, decoder=decoder, device=dev)
@@ -1274,6 +1480,30 @@ def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
     df.mapper.marginalize_keyframe = timed(df.mapper.marginalize_keyframe,
                                            evict_ms)
     df.mapper._eliminate = timed(df.mapper._eliminate, eliminate_ms)
+    # reprojection: host ms of detection (per keyframe built), of match +
+    # RANSAC (per keyframe event) and of rep assembly (per GN iteration),
+    # each ending in a synchronise; matched and surviving counts per
+    # direction, read after the run
+    rep_ms = {"detect": [], "match_ransac": [], "rep_assembly": []}
+    rep_counts = []     # per event: (matched [2n], inliers [2n]) tensors
+    if use_reprojection:
+        m = df.mapper
+        m._detect = timed(m._detect, rep_ms["detect"])
+        m._rep_assemble = timed(m._rep_assemble, rep_ms["rep_assembly"])
+        rep_pairs = timed(m._rep_pairs, rep_ms["match_ransac"])
+        draw = m.ransac_draw
+
+        def counting_draw(valids, iters):
+            rep_counts.append([valids.sum(-1)])
+            return draw(valids, iters)
+
+        def counting_pairs(slot_pairs):
+            out = rep_pairs(slot_pairs)
+            rep_counts[-1].append((out[..., 4] > 0.5).sum(-1))
+            return out
+
+        m.ransac_draw = counting_draw
+        m._rep_pairs = counting_pairs
 
     reset_launch_counts()
     torch.cuda.synchronize()
@@ -1331,20 +1561,48 @@ def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
     log(f"{tag} (ATE m, keyframes built, evictions) by frames fed: {ate_at}")
     log(f"{tag} kernel launches: {launch_counts()}; by event kind: "
         f"{launches_by}")
+    counts = [(a.tolist(), b.tolist()) for a, b in rep_counts]
+    if use_reprojection:
+        m = df.mapper
+        log(f"{tag} reprojection: {len(counts)} matching events, matched / "
+            f"surviving RANSAC per direction: {counts}; rep factors live "
+            f"{int(m.rep_pool.active.sum())}; GN iterations assembling rep "
+            f"factors {m.rep_stats['iterations']} ({m.rep_stats['factor_terms']}"
+            f" factor terms)")
+        log(f"{tag} keyframe-event parts, host ms each ending in a "
+            f"synchronise: detection per keyframe built {stat(rep_ms['detect'])}"
+            f"; match + RANSAC per event {stat(rep_ms['match_ransac'])}; rep "
+            f"assembly per GN iteration {stat(rep_ms['rep_assembly'])}; "
+            f"{smi_line() if dev != 'cpu' else 'cpu'}")
     return dict(df=df, cam=cam, frames=frames, ate=ate, tracked=tracked,
-                evicted=evicted, ate_at=ate_at)
+                evicted=evicted, ate_at=ate_at, rep_counts=counts,
+                rep_ms=rep_ms, ms_by=ms_by)
 
 
 def phase_e2e(dev, decoder):
-    """Phase 4: 60 frames in a window of 32 keyframes (no eviction)."""
+    """Phase 4: 60 frames in a window of 32 keyframes (no eviction), in the
+    default configuration: reprojection factors on."""
     r = run_facade(dev, decoder, "e2e", scene_seed=7, n_frames=N_FRAMES,
-                   max_keyframes=32, max_factors=128)
+                   max_keyframes=32, max_factors=128, use_reprojection=True)
     launches = launch_counts()
     df = r["df"]
-    assert df.n_lost_frames == 0, "frames lost"
+    m = df.mapper
+    assert df.n_lost_frames == 0 and r["tracked"] == 1.0, "frames lost"
     assert df.n_evictions == 0, "a window of 32 evicted"
     path = ("se3_gram_batch", "sfm_gram_batch", "sfm_error_batch")
     assert all(launches[k] > 0 for k in path), f"kernel not launched: {launches}"
+    # rep factors were built: one matching event per keyframe event, and
+    # at least one rep factor for every keyframe event after the first (the
+    # JAX facade's CPU run builds 0, 1, 3, 4, 4, 4, 3, 4, 4 in its nine)
+    n_events = m._next_kid - 2
+    assert len(r["rep_counts"]) == n_events > 0, (len(r["rep_counts"]),
+                                                 n_events)
+    built = [sum(n >= 8 for n in inl) for _, inl in r["rep_counts"]]
+    assert all(k >= 1 for k in built[1:]), f"rep factors per event {built}"
+    assert int(m.rep_pool.active.sum()) == sum(built), built
+    # ... and assembled into the GN system
+    assert m.rep_stats["iterations"] > 0 and m.rep_stats["factor_terms"] > 0
+    assert len(r["rep_ms"]["rep_assembly"]) >= m.rep_stats["iterations"]
     assert r["ate"] < ATE_BOUND_M, f"ATE {r['ate']} >= {ATE_BOUND_M}"
     return launches
 
@@ -1713,6 +1971,7 @@ def main():
             log(f"--- {src}\n{v['ptxas']}")
 
     kern = phase_kernels(dev, first_design)
+    phase_rep_ops(dev)
     decoder = phase_decoder(dev)
     launches_e2e = phase_e2e(dev, decoder)
     launches = phase_long_run(dev, decoder)
@@ -1742,7 +2001,7 @@ def main():
         # launches: the long run (phase 5) for the four kernels it drives,
         # the parallel entry points (phase 6) for the two it does not;
         # launches_by_path gives every path's count
-        by_path = {"e2e_60_frames": launches_e2e[name],
+        by_path = {"e2e_60_frames_rep": launches_e2e[name],
                    "long_run": launches[name],
                    **{k: v[name] for k, v in parallel.items()}}
         rows.append({"name": name, "route": "cuda", "source": src,

@@ -8,7 +8,8 @@ Unlike the JAX package (immutable arrays, every write rebuilds the state),
 ``add_keyframe``, ``update_depth_all``, ``add_link`` and ``remove_link``
 write the pools IN PLACE and return the same state object. The level-0
 depth gradient of the JAX map serves only the geometric factor and comes
-with it.
+with it. Keypoint descriptors are ``int32`` words holding the bits of the
+JAX package's ``uint32`` ones (features/detector.py).
 """
 from __future__ import annotations
 
@@ -49,10 +50,14 @@ class MapState(NamedTuple):
     link_dst: Tensor     # [Lmax] int32 slot index
     link_active: Tensor  # [Lmax] bool
     next_id: Tensor  # [] int32
+    # sparse features (Frame::features, frame.h:104), fixed capacity per kf
+    kp_xy: Tensor     # [K, Kp, 2]
+    kp_desc: Tensor   # [K, Kp, 8] int32
+    kp_valid: Tensor  # [K, Kp] bool
 
 
 def create(K: int, CS: int, H: int, W: int, num_levels: int, max_links: int,
-           device="cuda") -> MapState:
+           max_keypoints: int = 0, device="cuda") -> MapState:
     z = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype,
                                                     device=device)
     levels = []
@@ -73,16 +78,21 @@ def create(K: int, CS: int, H: int, W: int, num_levels: int, max_links: int,
         link_dst=z(max_links, dtype=torch.int32),
         link_active=z(max_links, dtype=torch.bool),
         next_id=z(dtype=torch.int32),
+        kp_xy=z(K, max_keypoints, 2),
+        kp_desc=z(K, max_keypoints, 8, dtype=torch.int32),
+        kp_valid=z(K, max_keypoints, dtype=torch.bool),
     )
 
 
 def add_keyframe(state: MapState, slot: int, pose: SE3, code: Tensor,
                  img_pyr: Sequence[Tensor], grad_pyr: Sequence[Tensor],
                  prx0_pyr: Sequence[Tensor], jacT_pyr: Sequence[Tensor],
-                 stdev_pyr: Sequence[Tensor], avg_dpt: float) -> MapState:
+                 stdev_pyr: Sequence[Tensor], avg_dpt: float,
+                 features=None) -> MapState:
     """Write a decoded keyframe into ``slot`` in place (Mapper::BuildKeyframe,
     mapper.cpp:919-1007); depth is materialised immediately. ``jacT_pyr``
-    is feature-major [CS, h, w] per level."""
+    is feature-major [CS, h, w] per level; ``features`` (a
+    ``features.detector.Features``) fills the keypoint pools."""
     for l, lvl in enumerate(state.levels):
         jac_hwc = jacT_pyr[l].permute(1, 2, 0)
         dpt = ip.update_depth(code, prx0_pyr[l], jac_hwc, avg_dpt)
@@ -93,6 +103,10 @@ def add_keyframe(state: MapState, slot: int, pose: SE3, code: Tensor,
         lvl.stdev[slot] = stdev_pyr[l]
         lvl.dpt[slot] = dpt
         lvl.vld[slot] = 1.0
+    if features is not None:
+        state.kp_xy[slot] = features.xy
+        state.kp_desc[slot] = features.descriptor
+        state.kp_valid[slot] = features.valid
     state.active[slot] = True
     state.ids[slot] = state.next_id
     state.pose.q[slot] = pose.q

@@ -7,8 +7,22 @@ observable schedule is kept — the coarse-to-fine per-work level state
 machine, per-level iteration budgets, descent on "no variables
 relinearized" (df_work.cpp:99-195, mapper.cpp:517-539) — while each GN
 iteration relinearises every active photometric factor in one
-``sfm_gram_batch`` call per (level, target kind), assembles one dense
-system and solves it with the code blocks Schur-eliminated.
+``sfm_gram_batch`` call per (level, target kind) and every live
+reprojection factor in one batched ``ops/sparse_factors.reprojection_system``
+call, assembles one dense system and solves it with the code blocks
+Schur-eliminated.
+
+Reprojection factors (on by default, as in the JAX package): every keyframe
+is built with its keypoints (``features/detector.detect_pyramid``); a
+keyframe event matches the new keyframe with each back-connection both
+ways and prunes the matches by 8-point RANSAC, all directions at once
+(``features/matching``), then reads the packed result to the host in one
+copy. A direction with at least 8 surviving matches becomes a
+reprojection work; its factor stays in the rep pool until one of its
+keyframes is evicted. The GN iterations read a device copy of the live rep
+pool that is uploaded again only when the pool changes. The RANSAC draws
+come from ``ransac_draw`` (a ``torch.Generator`` seeded with 42 unless a
+caller replaces it: the JAX package draws from its own PRNG).
 
 Each GN iteration ends with one host read of the update norm (the early
 exit on ``max_delta < relin_threshold``).
@@ -21,8 +35,8 @@ pose is archived and its slot reused. ``dump_state`` / ``save_graphs``
 inspect the map; with ``verbose_errors`` every live keyframe-to-keyframe
 factor is evaluated by ``sfm_error_batch``.
 
-Not ported yet (each raises ``NotImplementedError``): reprojection and
-geometric factors, depth priors, the native scheduler.
+Not ported yet (each raises ``NotImplementedError``): geometric factors,
+depth priors, the native scheduler.
 """
 from __future__ import annotations
 
@@ -36,8 +50,11 @@ from ..geometry import se3 as se3m
 from ..geometry import warping as wp
 from ..geometry.camera import PinholeCamera, camera_pyramid
 from ..geometry.se3 import SE3
+from ..features import detector as det
+from ..features import matching as mt
 from ..ops import dense_sfm as ds
 from ..ops import image as ip
+from ..ops import sparse_factors as sf
 from ..ops.kernels import sfm_error as se
 from ..ops.kernels import sfm_gram as sg
 from ..solver import system as sysm
@@ -80,17 +97,30 @@ class MapperConfig(NamedTuple):
     grad_mode: str = "interp"      # 'interp' | 'sampled'
     use_schur: bool = True
     use_photometric: bool = True
-    # the remaining factor kinds come with later slices; the defaults match
-    # the JAX package, so a configuration must switch them off explicitly
+    # reprojection factors (deepfactors_options.h:91-101), on by default
+    # like the reference's shipped configuration (common.flags:18)
     use_reprojection: bool = True
+    max_keypoints: int = 128       # detector capacity (rep_nfeatures)
+    # rep factors persist until their keyframe is evicted: worst case
+    # max_keyframes * 2 directions * max_back_connections live at once,
+    # plus loop links. 0 = derive that worst case at Mapper construction
+    # (an explicit value is honoured as it is)
+    max_rep_factors: int = 0
+    rep_max_dist: float = 30.0     # hamming threshold for match pruning
+    rep_huber: float = 0.1
+    rep_iters: int = 15
+    rep_sigma: float = 1.0
+    rep_ransac_maxiters: int = 128
+    rep_ransac_threshold: float = 1e-4
+    # the remaining factor kinds come with later slices; the defaults match
+    # the JAX package
     use_geometric: bool = False
     use_depth_prior: bool = False
     use_native_scheduler: bool = False
 
 
 def _check_supported(cfg: MapperConfig):
-    for flag, what in (("use_reprojection", "reprojection factors"),
-                       ("use_geometric", "sparse geometric factors"),
+    for flag, what in (("use_geometric", "sparse geometric factors"),
                        ("use_depth_prior", "depth-prior factors")):
         if getattr(cfg, flag):
             raise NotImplementedError(
@@ -127,6 +157,9 @@ class Mapper:
         assert len(cfg.pho_iters) == cfg.pyramid_levels
         _check_supported(cfg)
         configure_numerics()
+        if cfg.max_rep_factors <= 0:
+            cfg = cfg._replace(max_rep_factors=(
+                cfg.max_keyframes * 2 * cfg.max_back_connections + 16))
         self.cfg = cfg
         self.cam = cam
         self.decoder = decoder
@@ -137,13 +170,21 @@ class Mapper:
                                    valid_border=cfg.valid_border)
         # observer of evictions, fn(slot, kf_id); survives reset()
         self.evict_callback: Optional[Callable[[int, int], None]] = None
+        # RANSAC hypothesis draws, fn(valids [2n, M] bool, iterations) ->
+        # indices [2n, I, 8], one call per keyframe event that matches;
+        # survives reset() like the JAX mapper's key chain
+        self._rng = torch.Generator(device=self.device).manual_seed(42)
+        self.ransac_draw: Callable = lambda valids, iters: \
+            mt.draw_hypotheses(valids, iters, self._rng)
         self.reset()
 
     def reset(self):
         cfg, dev = self.cfg, self.device
-        self.state = ms.create(cfg.max_keyframes, cfg.code_size, cfg.height,
-                               cfg.width, cfg.pyramid_levels,
-                               max_links=4 * cfg.max_factors, device=dev)
+        self.state = ms.create(
+            cfg.max_keyframes, cfg.code_size, cfg.height, cfg.width,
+            cfg.pyramid_levels, max_links=4 * cfg.max_factors,
+            max_keypoints=cfg.max_keypoints if cfg.use_reprojection else 0,
+            device=dev)
         self.frames = fr.create(cfg.max_frames, cfg.height, cfg.width,
                                 cfg.pyramid_levels, device=dev)
         self.sched = make_scheduler(cfg)
@@ -165,12 +206,20 @@ class Mapper:
         self.last_max_delta = float("inf")
         self.frame_active_host = np.zeros(cfg.max_frames, bool)
         self.frame_marg_host = np.zeros(cfg.max_frames, bool)
+        self._rep_cache = None             # (pool version, device copy)
+        # GN iterations that assembled reprojection factors, and the factor
+        # terms they assembled in all
+        self.rep_stats = {"iterations": 0, "factor_terms": 0}
 
     # -- views -------------------------------------------------------------
 
     @property
     def pool(self):
         return self.sched.photo_pool
+
+    @property
+    def rep_pool(self):
+        return self.sched.rep_pool
 
     @property
     def work(self):
@@ -417,8 +466,9 @@ class Mapper:
             stdev = tuple(torch.zeros_like(im) for im in img_pyr)
             kf_code = (torch.as_tensor(code, dtype=torch.float32, device=dev)
                        if with_code else torch.zeros((CS,), device=dev))
+        features = self._detect(img_pyr) if cfg.use_reprojection else None
         ms.add_keyframe(self.state, slot, pose, kf_code, img_pyr, grad_pyr,
-                        prx0, jac, stdev, cfg.avg_dpt)
+                        prx0, jac, stdev, cfg.avg_dpt, features=features)
         self.kf_slots.append(slot)
         self.kf_ids[self._next_kid] = slot
         self._next_kid += 1
@@ -487,10 +537,20 @@ class Mapper:
         ident = se3m.identity(device=dev)
         return (torch.where(ok, qs[b], ident.q), torch.where(ok, ts[b], ident.t))
 
+    def _detect(self, img_pyr) -> det.Features:
+        """The keyframe's keypoints (scale-space detection over its image
+        pyramid)."""
+        tic("kf:detect")
+        f = det.detect_pyramid(
+            img_pyr, det.DetectorConfig(max_keypoints=self.cfg.max_keypoints))
+        toc("kf:detect")
+        return f
+
     def enqueue_keyframe(self, img, pose_init: SE3, code=None,
                          pyramids_in=None) -> int:
         """EnqueueKeyframe (mapper.cpp:282-344): photometric works both ways
-        to the back-connections."""
+        to the back-connections, and reprojection works both ways when
+        enabled."""
         # evict BEFORE selecting back-connections so none references a slot
         # about to be marginalised
         if len(self.kf_slots) >= self.cfg.max_keyframes:
@@ -499,10 +559,69 @@ class Mapper:
         slot = self.add_keyframe_to_map(img, pose_init, code,
                                         pyramids_in=pyramids_in)
         self.marginalize_frames()
+        finish_rep = None
+        if self.cfg.use_reprojection:
+            # all back-connections in one match + RANSAC pass; its host copy
+            # is read after the photometric works are registered
+            finish_rep = self._add_rep_pairs_async(
+                [(slot, back) for back in conns])
         if self.cfg.use_photometric:
             for back in conns:
                 self._add_photo_pair(slot, back, second_removes=True)
+        if finish_rep is not None:
+            finish_rep()
         return slot
+
+    def _rep_pairs(self, slot_pairs) -> Tensor:
+        """Match + RANSAC for both directions of every keyframe pair, all at
+        once: direction 2j is (a_j, b_j), 2j+1 is (b_j, a_j). Returns the
+        packed [2n, M, 5] device array (kp0 | kp1 | surviving match)."""
+        cfg, st = self.cfg, self.state
+        dirs = [d for a, b in slot_pairs for d in ((a, b), (b, a))]
+        A, B = torch.tensor(dirs, device=self.device).T
+        m = mt.match(st.kp_desc[A], st.kp_valid[A], st.kp_desc[B],
+                     st.kp_valid[B], max_dist=int(cfg.rep_max_dist))
+        kp0 = st.kp_xy[A]
+        kp1 = torch.gather(st.kp_xy[B], 1,
+                           m.idx1.long()[..., None].expand(-1, -1, 2))
+        idx = torch.as_tensor(
+            self.ransac_draw(m.valid, cfg.rep_ransac_maxiters),
+            device=self.device)
+        inl = mt.prune_matches_eight_point(
+            kp0, kp1, m.valid, self.cam, idx=idx,
+            threshold=cfg.rep_ransac_threshold)
+        return torch.cat([kp0, kp1, (m.valid & inl).to(torch.float32)[..., None]],
+                         dim=-1)
+
+    def _add_rep_pairs(self, slot_pairs):
+        self._add_rep_pairs_async(slot_pairs)()
+
+    def _add_rep_pairs_async(self, slot_pairs):
+        """Both-way reprojection works with matching + RANSAC pruning at
+        construction (reprojection_factor.cpp:54-69) for every pair of a
+        keyframe event. The device work starts here; the returned finish()
+        reads the packed result to the host (the event's one copy) and
+        registers the works, skipping a direction with fewer than 8
+        surviving matches (df_work.cpp:316-347)."""
+        if not slot_pairs:
+            return lambda: None
+        tic("kf:rep-dispatch")
+        out = self._rep_pairs(slot_pairs)
+        toc("kf:rep-dispatch")
+
+        def finish():
+            tic("kf:rep-finish")
+            packed = out.cpu().numpy()
+            kp0s, kp1s = packed[..., 0:2], packed[..., 2:4]
+            valids = packed[..., 4] > 0.5
+            dirs = [d for a, b in slot_pairs for d in ((a, b), (b, a))]
+            for d, (a, b) in enumerate(dirs):
+                if valids[d].sum() >= 8:
+                    self.sched.add_rep(a, b, self.cfg.rep_iters, kp0s[d],
+                                       kp1s[d], valids[d])
+            toc("kf:rep-finish")
+
+        return finish
 
     def enqueue_frame(self, img, pose_init: SE3, kf_slot: int,
                       pyramids=None) -> int:
@@ -698,6 +817,9 @@ class Mapper:
                 acts.append(kfm)
         gsys = sysm.assemble(D, torch.cat(Hs), torch.cat(bs), torch.cat(idxs),
                              torch.cat(acts))
+        rg = self._rep_assemble(D) if cfg.use_reprojection else None
+        if rg is not None:
+            gsys = sysm.GlobalSystem(gsys.H + rg.H, gsys.b + rg.b)
 
         # marginal priors from marginalised one-way frames
         mH, mg_ = mg.prior_terms(self.marginals, st.pose, st.code)
@@ -736,6 +858,50 @@ class Mapper:
             fp = se3m.retract(self.frames.pose, delta[Dp + Dc:].reshape(F, 6))
             self.frames = self.frames._replace(pose=fp)
         return torch.max(torch.abs(delta * vmask.to(delta.dtype)))
+
+    def _rep_dev(self):
+        """Device copy of the live reprojection factors (a dict of src, dst,
+        kp0, kp1, mvalid, active, compacted to the active pool slots), or
+        None when none is live. Uploaded again only when the scheduler's
+        ``repgeo_version`` moved (every rep pool mutation bumps it), not per
+        GN iteration."""
+        ver = self.sched.repgeo_version
+        if self._rep_cache is not None and self._rep_cache[0] == ver:
+            return self._rep_cache[1]
+        p = self.sched.rep_pool
+        sel = np.nonzero(p.active)[0]
+        rep = None
+        if len(sel):
+            t = lambda a: torch.as_tensor(np.ascontiguousarray(a[sel]),
+                                          device=self.device)
+            rep = {"src": t(p.src).long(), "dst": t(p.dst).long(),
+                   "kp0": t(p.kp0), "kp1": t(p.kp1), "mvalid": t(p.mvalid),
+                   "active": torch.ones(len(sel), dtype=torch.bool,
+                                        device=self.device)}
+        self._rep_cache = (ver, rep)
+        return rep
+
+    def _rep_assemble(self, D: int) -> Optional[sysm.GlobalSystem]:
+        """The GN system [D] of every live reprojection factor, linearised
+        at level 0 in one batched call (reprojection_factor.cpp:159-269),
+        each system laid out (pose0, pose1, code0) like a photometric
+        factor's; None when no rep factor is live."""
+        rep = self._rep_dev()
+        if rep is None:
+            return None
+        st, cfg = self.state, self.cfg
+        lvl0 = st.levels[0]
+        rsys = sf.reprojection_system(
+            ms.poses_of(st, rep["src"]), ms.poses_of(st, rep["dst"]),
+            st.code[rep["src"]], self.cams[0], rep["kp0"], rep["kp1"],
+            rep["mvalid"], lvl0.prx0, lvl0.jac, huber_delta=cfg.rep_huber,
+            sigma=cfg.rep_sigma, avg_dpt=cfg.avg_dpt, src=rep["src"])
+        self.rep_stats["iterations"] += 1
+        self.rep_stats["factor_terms"] += int(rep["src"].shape[0])
+        return sysm.assemble(
+            D, rsys.JtJ, rsys.Jtr,
+            sysm.factor_slot_indices(rep["src"], rep["dst"], cfg.max_keyframes,
+                                     cfg.code_size), rep["active"])
 
     def _run(self, pool: FactorPool, levels_present, budget: int,
              use_frames: bool, eff_level=None):
@@ -813,6 +979,8 @@ class Mapper:
         pool = self._compact_pool()
         levels_present = tuple(sorted({int(l) for l, a in
                                        zip(pool.level, pool.active) if a}))
+        if not levels_present and self.sched.rep_pool.active.any():
+            levels_present = (0,)
         if not levels_present:
             self.sched.tick_empty()
             return
@@ -865,8 +1033,7 @@ class Mapper:
         (mapper.cpp:591-632). With ``verbose_errors`` every active
         keyframe-to-keyframe photometric factor is evaluated once (residual
         and inliers), one ``sfm_error_batch`` call per pool level. The
-        reprojection and geometric lists stay empty until those factors are
-        ported."""
+        geometric list stays empty until that factor is ported."""
         out: dict = {"keyframes": [], "works": [], "photo_factors": [],
                      "rep_factors": [], "geo_factors": [], "links": [],
                      "archived": [dict(a, q=a["q"].tolist(), t=a["t"].tolist())
@@ -903,6 +1070,10 @@ class Mapper:
                 row["residual"] = round(float(err[i]), 6)
                 row["inliers"] = int(inl[i])
             out["photo_factors"].append(row)
+        p = self.sched.rep_pool
+        for i in np.nonzero(p.active)[0]:
+            out["rep_factors"].append({"slot": int(i), "src": int(p.src[i]),
+                                       "dst": int(p.dst[i])})
         out["links"] = [list(pair) for _, pair in self.links_host]
         return out
 
@@ -947,6 +1118,10 @@ class Mapper:
                        else f"k{int(pool.dst[i])}")
                 lines.append(f'  k{int(pool.src[i])} -- {dst} '
                              f'[label="pho L{int(pool.level[i])}"];')
+        p = self.sched.rep_pool
+        for i in np.nonzero(p.active)[0]:
+            lines.append(f'  k{int(p.src[i])} -- k{int(p.dst[i])} '
+                         f'[label="rep" style=dashed];')
         marg = self.marginals.active.cpu().numpy()
         for s in self.kf_slots:
             if marg[s]:

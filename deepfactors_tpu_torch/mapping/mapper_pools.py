@@ -1,6 +1,6 @@
-"""Host-side photometric factor pool shared by the scheduler and the Mapper
-(own copy of ``deepfactors_tpu/mapping/mapper_pools.py``; the reprojection
-and geometric pools come with their slices)."""
+"""Host-side factor pools shared by the scheduler and the Mapper (own copy
+of ``deepfactors_tpu/mapping/mapper_pools.py``; the geometric pool comes
+with its slice)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -25,4 +25,25 @@ def _empty_pool(P: int) -> FactorPool:
         dst_is_frame=np.zeros(P, bool),
         level=np.zeros(P, np.int32),
         active=np.zeros(P, bool),
+    )
+
+
+class RepPool(NamedTuple):
+    """Reprojection factor pool."""
+
+    src: np.ndarray     # [P]
+    dst: np.ndarray     # [P]
+    active: np.ndarray  # [P]
+    kp0: np.ndarray     # [P, M, 2]
+    kp1: np.ndarray     # [P, M, 2]
+    mvalid: np.ndarray  # [P, M]
+
+
+def _empty_rep_pool(P: int, M: int) -> RepPool:
+    return RepPool(
+        src=np.zeros(P, np.int32), dst=np.zeros(P, np.int32),
+        active=np.zeros(P, bool),
+        kp0=np.zeros((P, M, 2), np.float32),
+        kp1=np.zeros((P, M, 2), np.float32),
+        mvalid=np.zeros((P, M), bool),
     )

@@ -80,6 +80,20 @@ def _pixel_grid(H: int, W: int, device) -> Tensor:
     return torch.stack([xs, ys], dim=-1)
 
 
+def _masked_system(J: Tensor, r: Tensor, w: Tensor, valid: Tensor) -> SystemResult:
+    """Weighted masked GN system from ROW-MAJOR Jacobians J [..., N, D] with
+    r, w, valid [..., N]: the weight applies to both rows and residual
+    (dense_sfm.h:189-199); an invalid row gets weight 0. Leading axes are
+    batched."""
+    wv = torch.where(valid, w, torch.zeros_like(w))
+    Jw = J * wv[..., None]
+    rw = r * wv
+    return SystemResult(Jw.transpose(-1, -2) @ Jw,
+                        (Jw.transpose(-1, -2) @ rw[..., None])[..., 0],
+                        torch.sum(rw * rw, dim=-1),
+                        torch.sum(valid.to(torch.float32), dim=-1))
+
+
 def _masked_system_T(JT: Tensor, r: Tensor, w: Tensor, valid: Tensor) -> SystemResult:
     """Weighted masked GN system from FEATURE-MAJOR Jacobians JT [..., D, N]
     with r, w, valid [..., N] (weight on both rows and residual,

@@ -6,7 +6,9 @@ end-to-end phases: ``random_room(seed, n_boxes=3)`` (``--scene-seed``, 7
 unless given), the first ``--frames`` poses of
 ``orbit_trajectory(300, sweep=3.2*pi)`` rendered at 192x256, the
 ``room256_32v4`` decoder, bootstrap on frames 0 and 2, sequential facade
-with loop closure and reprojection factors off. The accuracy numbers it
+with loop closure off and reprojection factors off unless
+``--use-reprojection`` is given (the mapper's default configuration). The
+accuracy numbers it
 prints (tracked fraction, rigid ATE, keyframe and eviction counts, the
 first lost frame) are the parity target and the source of the ATE bounds
 chip_smoke.py asserts.
@@ -18,6 +20,7 @@ Run on the CPU, from the repository root:
   room 7 this facade loses tracking at frame 126):
     JAX_PLATFORMS=cpu python port_tools/jax_smoke_reference.py \
         --frames 180 --max-keyframes 16 --max-factors 64 --scene-seed 5
+  either with the reprojection factors on: add --use-reprojection.
 Prints one JSON line. Its wall-clock numbers are CPU numbers and say
 nothing about any accelerator.
 """
@@ -48,6 +51,7 @@ def main():
     # chip_smoke.py); other values probe how far a run depends on one
     # decision falling a frame earlier or later
     ap.add_argument("--frame-dist-threshold", type=float, default=0.12)
+    ap.add_argument("--use-reprojection", action="store_true")
     args = ap.parse_args()
     n_frames = args.frames
 
@@ -83,7 +87,7 @@ def main():
             max_factors=args.max_factors, code_size=32,
             height=H, width=W, pyramid_levels=3, pho_iters=(4, 8, 15),
             connection_mode="LASTN", max_back_connections=2,
-            use_reprojection=False),
+            use_reprojection=args.use_reprojection),
         dist_threshold=2.0, tracking_dist_threshold=5.0,
         frame_dist_threshold=args.frame_dist_threshold, loop_closure=False)
     df = DeepFactors(cfg, cam, decoder=decoder)
@@ -115,6 +119,9 @@ def main():
         # frames fed so far -> [rigid ATE (m), evictions], while none is lost
         "ate_and_evictions_at": ate_at,
         "n_frames_processed": df.n_frames,
+        "use_reprojection": args.use_reprojection,
+        "n_rep_factors_live": int(df.mapper.rep_pool.active.sum())
+        if args.use_reprojection else 0,
         "cpu_wall_s": wall,
         "platform": jax.devices()[0].platform,
     }))

@@ -2,18 +2,23 @@
 
 Runs one of chip_smoke.py's full-width phases at 192x256 with the
 room256_32v4 decoder (the sequential facade on the synthetic room orbit: 60
-frames in a window of 32 keyframes, or with ``--long`` the 180 frames in a
-window of 16 that evict, with the map dump and warp render after them; with
+frames in a window of 32 keyframes with reprojection factors on, or with
+``--long`` the 180 frames in a window of 16 that evict, reprojection off,
+with the map dump and warp render after them; with
 ``--phase large_map`` the 10 BA iterations over 32 keyframes and 236
 factors, with ``--phase odometry`` the 30 lockstep frames over 8 rooms,
-each without its set-up) once to warm up, then again under
+with ``--phase rep_ops`` one keyframe event's reprojection work at the
+main path's shapes: detect_pyramid on one 192x256 frame, match + RANSAC
+both ways of one pair (128 hypotheses), and the rep system of 32 factors
+with its assembly; each without its set-up) once to warm up, then again under
 ``torch.profiler`` with CUDA activity only, and prints:
   - the run's wall time and the device's busy time (the union of all
     kernel and copy intervals), hence the device's idle share;
   - the device time by kernel name (count, total, mean), largest first.
 
 Run from the repository root on a machine with a GPU:
-    python3 port_tools/profile_e2e.py [--long | --phase NAME] [--top 25] [--json PATH]
+    python3 port_tools/profile_e2e.py [--long | --phase NAME] [--top 25]
+        [--json PATH]
 ``--json`` also writes the numbers to PATH.
 """
 import argparse
@@ -41,13 +46,69 @@ def busy_us(intervals):
     return total
 
 
+def rep_ops_problem(cs, dev="cuda"):
+    """The reprojection work of one keyframe event on the card (frames
+    ``cs.REP_FRAMES`` of room 7), as one callable."""
+    import numpy as np
+    import torch
+    from deepfactors_tpu_torch.features import detector as det
+    from deepfactors_tpu_torch.features import matching as mt
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.geometry.camera import PinholeCamera
+    from deepfactors_tpu_torch.io import synth
+    from deepfactors_tpu_torch.ops import image as ip
+    from deepfactors_tpu_torch.ops import sparse_factors as sf
+    from deepfactors_tpu_torch.solver import system as sysm
+
+    H, W, CS, K, P = cs.H, cs.W, 32, 32, 32
+    cam = PinholeCamera.create(fx=220.0, fy=220.0, u0=W / 2, v0=H / 2,
+                               width=W, height=H)
+    poses = synth.orbit_trajectory(cs.SEQ_LEN, sweep=3.2 * np.pi)
+    frames = synth.render_sequence(synth.random_room(7, n_boxes=3), cam,
+                                   [poses[i] for i in cs.REP_FRAMES], H, W,
+                                   device=dev)
+    pyr = [ip.build_pyramid(torch.as_tensor(np.asarray(f), device=dev), 3)
+           for f in frames]
+    dcfg = det.DetectorConfig(max_keypoints=128)
+    f0, f1 = (det.detect_pyramid(p, dcfg) for p in pyr)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    g = torch.Generator(device=dev).manual_seed(0)
+    ident = se3m.identity((P,), device=dev)
+    rep = (ident, se3m.retract(ident, 0.01 * torch.randn(
+        P, 6, device=dev, generator=g)),
+        torch.zeros((P, CS), device=dev), cam,
+        torch.rand((P, 128, 2), device=dev, generator=g) * 150 + 40,
+        torch.rand((P, 128, 2), device=dev, generator=g) * 150 + 40,
+        torch.ones((P, 128), dtype=torch.bool, device=dev),
+        torch.full((K, H, W), 0.5, device=dev),
+        0.01 * torch.randn((K, CS, H, W), device=dev, generator=g))
+    src = torch.arange(P, device=dev) % K
+    idx = sysm.factor_slot_indices(src, (src + 1) % K, K, CS)
+    act = torch.ones(P, dtype=torch.bool, device=dev)
+
+    def run():
+        det.detect_pyramid(pyr[0], dcfg)
+        D0 = torch.stack([f0.descriptor, f1.descriptor])
+        D1 = torch.stack([f1.descriptor, f0.descriptor])
+        m = mt.match(D0, torch.stack([f0.valid, f1.valid]), D1,
+                     torch.stack([f1.valid, f0.valid]), max_dist=30)
+        xy1 = torch.gather(torch.stack([f1.xy, f0.xy]), 1,
+                           m.idx1.long()[..., None].expand(-1, -1, 2))
+        mt.prune_matches_eight_point(
+            torch.stack([f0.xy, f1.xy]), xy1, m.valid, cam,
+            idx=mt.draw_hypotheses(m.valid, 128, gen))
+        r = sf.reprojection_system(*rep, src=src)
+        sysm.assemble(K * (6 + CS), r.JtJ, r.Jtr, idx, act)
+    return run
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--json", default=None)
     ap.add_argument("--long", action="store_true")
     ap.add_argument("--phase", default=None,
-                    choices=("large_map", "odometry"))
+                    choices=("large_map", "odometry", "rep_ops"))
     args = ap.parse_args()
 
     import torch
@@ -73,6 +134,8 @@ def main():
     elif name == "odometry":
         setup = cs.odometry_setup("cuda")
         phase = lambda: cs.odometry_run(setup)
+    elif name == "rep_ops":
+        phase = rep_ops_problem(cs)
     else:
         run = cs.phase_long_run if name == "long" else cs.phase_e2e
         phase = lambda: run("cuda", dec)

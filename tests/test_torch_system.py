@@ -18,13 +18,30 @@ What must agree:
 A second pair of runs shrinks the keyframe window to 4, so the same
 sequence outlives it: keyframe, one-way-frame and eviction decisions
 (victim slot and keyframe id, in order) must be identical, every frame
-tracked, and the poses within the same tolerances."""
+tracked, and the poses within the same tolerances.
+
+A third pair of runs switches the reprojection factors on (the default
+configuration but for loop closure) on the sequence of
+tests/test_torch_mapper_rep.py: a corner-rich textured plane seen by a
+camera moving sideways, 4 px a frame, 20 frames (the synthetic room holds
+too few corners at 48x64 for 8 matches to survive). The port's RANSAC
+draws replay the JAX mapper's key chain (``JaxKeyChain``), so both see
+the same hypotheses. Keyframe decisions must be identical, rep factors
+must be built, the poses within the same tolerances and the ATE within
+1e-2 m. The live rep factors must be the same, with the same surviving
+matches, except a direction with fewer than 10 matches: RANSAC draws its
+8 samples with replacement, so with about 8 matches nearly every
+hypothesis repeats one, its system is rank deficient, and the null vector
+each package's SVD returns is arbitrary; such a direction can end either
+side of the 8-match guard (found: one of 32 directions, 8 against 7
+inliers)."""
 import numpy as np
 import pytest
 import torch
 from test_torch_decoder import random_decoder_params
 
 from deepfactors_tpu.geometry.camera import PinholeCamera as JCam
+from deepfactors_tpu.geometry.se3 import SE3 as JSE3
 from deepfactors_tpu.io import synth as jsynth
 from deepfactors_tpu.mapping.mapper import MapperConfig as JMC
 from deepfactors_tpu.models.decoder import Decoder as JDec
@@ -45,16 +62,17 @@ H, W, N = 48, 64, 15
 POSE_T_TOL, POSE_Q_TOL, ATE_TOL = 3e-2, 1e-2, 1e-2
 
 
-def _cfg(SC, MC, max_keyframes=8):
+def _cfg(SC, MC, max_keyframes=8, use_reprojection=False):
     return SC(mapper=MC(max_keyframes=max_keyframes, max_frames=2, max_factors=16, code_size=4,
                         height=H, width=W, pyramid_levels=2, pho_iters=(4, 8),
-                        max_back_connections=2, use_reprojection=False),
+                        max_back_connections=2,
+                        use_reprojection=use_reprojection),
               tracking_iterations=(10, 5), dist_threshold=2.0,
               tracking_dist_threshold=5.0, frame_dist_threshold=0.12,
               loop_closure=False)
 
 
-def _run(df, frames, poses, tum):
+def _run(df, frames, poses, tum, n=N):
     df.bootstrap_two_frames(frames[0], frames[2], frame_gap=2)
     df.trajectory = [(0.0, df.pose_wc)]
     kf_events, fr_events, evicted = [], [], []
@@ -65,7 +83,7 @@ def _run(df, frames, poses, tum):
         on_evict(slot, kid)
 
     df.mapper.evict_callback = record
-    for i in range(3, N):
+    for i in range(3, n):
         n_kf = df.mapper._next_kid
         n_fr = int(np.array(df.mapper.frames.next_id))
         df.process_frame(float(i), frames[i])
@@ -76,6 +94,10 @@ def _run(df, frames, poses, tum):
                 archived=[a["id"] for a in df.mapper.archived],
                 n_live=len(df.mapper.kf_slots), lost=df.n_lost_frames,
                 n_evictions=getattr(df, "n_evictions", None),
+                rep={(int(p.src[i]), int(p.dst[i])): int(p.mvalid[i].sum())
+                     for p in [df.mapper.rep_pool]
+                     for i in np.nonzero(p.active)[0]}
+                if df.cfg.mapper.use_reprojection else {},
                 ts=[ts for ts, _ in df.trajectory],
                 q=np.stack([np.array(p.q) for _, p in df.trajectory]),
                 t=np.stack([np.array(p.t) for _, p in df.trajectory]),
@@ -98,6 +120,33 @@ def _both(max_keyframes):
                      decoder=jdec), frames, poses, jtum),
         torch=_run(TDF(_cfg(TSC, TMC, max_keyframes), TCam.create(**kw),
                        decoder=tdec, device="cpu"), frames, poses, ttum))
+
+
+def _both_rep():
+    from test_torch_mapper_rep import JaxKeyChain, textured_strip
+
+    n, step, depth, fx = 20, 4, 2.0, 55.0
+    kw = dict(fx=fx, fy=fx, u0=W / 2, v0=H / 2, width=W, height=H)
+    frames = textured_strip(n, step=step)
+    poses = [_sideways_pose(step * i * depth / fx) for i in range(n)]
+    ncfg = dict(code_size=4, pyramid_levels=2, input_width=W, input_height=H,
+                base_ch=8)
+    params = random_decoder_params(JNC(**ncfg), seed=0)
+    tdf = TDF(_cfg(TSC, TMC, use_reprojection=True), TCam.create(**kw),
+              decoder=TDec(TNC(**ncfg), params=params, device="cpu"),
+              device="cpu")
+    tdf.mapper.ransac_draw = JaxKeyChain()
+    return dict(
+        jax=_run(JDF(_cfg(JSC, JMC, use_reprojection=True), JCam.create(**kw),
+                     decoder=JDec(JNC(**ncfg), params=params)),
+                 frames, poses, jtum, n),
+        torch=_run(tdf, frames, poses, ttum, n), n=n)
+
+
+def _sideways_pose(tx):
+    """Camera-to-world pose of a sideways step of tx metres."""
+    return JSE3(np.array([1.0, 0, 0, 0], np.float32),
+                np.array([tx, 0, 0], np.float32))
 
 
 @pytest.fixture(scope="module")
@@ -154,3 +203,27 @@ def test_facade_counts_evictions(runs_evicting):
     """The facade's ``evict_callback`` hook saw every eviction."""
     a = runs_evicting["torch"]
     assert a["n_evictions"] == len(a["evicted"]) == len(a["archived"])
+
+
+@pytest.fixture(scope="module")
+def runs_rep():
+    return _both_rep()
+
+
+def test_rep_run_decisions_identical_and_factors_built(runs_rep):
+    a, b = runs_rep["torch"], runs_rep["jax"]
+    assert a["kf"] == b["kf"] and a["fr"] == b["fr"]
+    assert sum(a["kf"]) >= 2
+    assert a["lost"] == b["lost"] == 0
+    assert a["ts"] == b["ts"] and len(a["ts"]) == runs_rep["n"] - 2
+    assert len(a["rep"]) >= 10 and len(b["rep"]) >= 10
+    for k in set(a["rep"]) | set(b["rep"]):
+        if a["rep"].get(k) != b["rep"].get(k):
+            assert max(a["rep"].get(k, 0), b["rep"].get(k, 0)) < 10, k
+
+
+def test_rep_run_poses_close(runs_rep):
+    a, b = runs_rep["torch"], runs_rep["jax"]
+    np.testing.assert_allclose(a["t"], b["t"], atol=POSE_T_TOL)
+    np.testing.assert_allclose(a["q"], b["q"], atol=POSE_Q_TOL)
+    assert abs(a["ate"] - b["ate"]) < ATE_TOL
