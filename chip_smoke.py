@@ -7,8 +7,10 @@ Phases, in order (any failure exits non-zero before the final line):
      path's shapes (192x256, 96x128, 48x64 levels, K = 32 keyframe pools):
      sfm_gram_batch at P = 128 with half the slots inactive, CS 32 and 8,
      Huber/Tukey, from-prox on/off, interp/sampled; se3_gram_batch at
-     P = 1 and 8; both again at sizes no tile divides (90x122, 89x121, CS
-     64 and 5), at P = 1, with every factor inactive, and launched
+     P = 1 and 8, and at the loop paths' P = 10, 16, 32, 64 (candidates in
+     a pool of their own against one current frame, interp, three levels;
+     timed at 192x256); both again at sizes no tile divides (90x122,
+     89x121, CS 64 and 5), at P = 1, with every factor inactive, and launched
      repeatedly (the same bits, also after another P and size), beside the
      time of an empty launch; sfm_error_batch and se3_warp_batch at one P
      for every distinct launch plan of P = 1..128 (half the slots inactive)
@@ -28,7 +30,9 @@ Phases, in order (any failure exits non-zero before the final line):
      identical descriptors (identical), prune_matches_eight_point with the
      same draws (the same inlier mask but for errors on the threshold),
      reprojection_system (JtJ and Jtr within REP_SYS_TOL of each block's
-     largest entry, inliers equal); each timed on the card.
+     largest entry, inliers equal), and the loop closure's BoW with the
+     shipped vocabulary (every descriptor's word identical, similarities
+     within BOW_SIM_TOL); each timed on the card.
   3. the room256_32v4 decoder forward at 192x256 on the card, held against
      the same module on the CPU.
   4. end to end in the default configuration: the sequential DeepFactors
@@ -51,6 +55,19 @@ Phases, in order (any failure exits non-zero before the final line):
      iterations (dense_warp_batch); (c) ``BatchedOdometry`` over 8 rooms
      for 30 frames (se3_gram_batch at P = 8, sampled gradients); and one
      ``sfm_step`` (bilinear_warp_planes).
+  7. loop closure in the flagship configuration (tools/bench_e2e.py's
+     build_system: reprojection factors and loop closure on, active window
+     8, loop_max_dist 0.35, 32 keyframes, the shipped vocabulary) on 186
+     frames of random_room(42): every frame tracked, a global loop accepted
+     through the batched dense verification (se3_gram_batch at P = 10 a GN
+     iteration), the loop counters, the loop's frame and link, and the ATE
+     held to the JAX facade's CPU run;
+     7b. relocalisation in the same configuration with a window of 8: a
+     noise frame, then a recovery against the live pool (P = 8); evictions,
+     a noise frame, then frame 0 recovered against the archive (P = 64),
+     the matched archived keyframe resurrected; each relocalised pose near
+     the truth.
+     They run between phases 4 and 5.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -136,6 +153,10 @@ REP_RANSAC_ITERS = 128
 # CPU's GEMM, so JtJ and Jtr are held within 1e-4 of each (pose0, pose1,
 # code) block's largest entry
 REP_SYS_TOL = 1e-4
+# BoW card vs CPU (phase 2b): each descriptor's word identical (integer
+# Hamming distances, the first minimum), the L1 similarities of 256-word
+# vectors within 1e-6 (the same terms summed in another order)
+BOW_SIM_TOL = 1e-6
 # Device milliseconds of the two Gram kernels' first design (two launches
 # each: strip partials, then a reduce pass) at the shapes timed below, at
 # 192x256 / 96x128 / 48x64, as chip_smoke.py read them on an NVIDIA H100
@@ -185,6 +206,63 @@ LARGE_ERR_BOUND_M = 0.25
 # over the 30 frames in both packages, the other scenes 0.003-0.015 m.
 ODO_RMSE_BOUND_M = 0.06
 DRYRUN_TOL = 1e-4            # kernels vs twins, per block of (H, b)
+
+# Phase 7, loop closure in the flagship configuration: tools/bench_e2e.py's
+# build_system (reprojection factors and loop closure on, loop_active_window
+# 8, loop_max_dist 0.35, 32 keyframes, 128 factors, the shipped vocabulary)
+# on the orbit of random_room(42), one of BENCH_r05.json's rooms, for
+# LOOP_FRAMES frames, sequential. The JAX facade on a CPU
+# (port_tools/jax_smoke_reference.py --use-reprojection --loop-closure
+# --loop-active-window 8 --loop-max-dist 0.35 --scene-seed 42) tracks every
+# frame up to 189 and accepts a live global loop at frame 182 (its one
+# candidate verified with an inlier share of 0.6835 against 0.5 and a
+# translation of 0.164 m against 0.35) and another at 188, then loses
+# tracking at 190; in rooms 7, 11, 13 and 21 it loses tracking before or
+# without a loop (PERF.md section 6). The run stops after frame 185: one
+# loop, three frames after it.
+LOOP_SCENE_SEED = 42
+LOOP_FRAMES = 186
+LOOP_ACTIVE_WINDOW = 8
+LOOP_MAX_DIST = 0.35
+# (local links, live global loops, archived loops) of the JAX facade's run;
+# the card's four runs read the same, so the counters must be equal
+LOOP_COUNTS_JAX = (0, 1, 0)
+# the accepted loop in the JAX facade's run and the card's: at frame 182,
+# from keyframe slot 29 to slot 0; the card's may fall one frame earlier or
+# later (LOOP_FRAME_TOL), its target must be the same
+LOOP_AT_JAX = (182, 29, 0)
+LOOP_FRAME_TOL = 1
+# rigid ATE: the JAX facade on a CPU reads 0.1736 m, the card 0.1728-0.1741
+# m over eight runs (the port on a CPU 0.1211-0.1214 m: RANSAC's draws
+# differ between the CPU and the card, and its run parts at frame 16; the
+# card given the CPU's draws reads 0.1197 m; port_tools/decision_trace.py,
+# ROADMAP.md section C); the bound just above
+LOOP_ATE_BOUND_M = 0.20
+# se3_gram_batch's P on the loop paths: the verification of the global loop
+# (loop_max_candidates, padded), relocalisation against the live pool
+# (max_keyframes: 16 by default, 32 here) and against the archive
+# (loop_archive_cap); checked against the twin in phase 2
+LOOP_PS = (10, 16, 32, 64)
+# Phase 7b, relocalisation: the same configuration with a window of
+# RELOC_WINDOW keyframes, so that the orbit's first keyframes are evicted
+# into the archive within RELOC_FRAMES frames. A noise frame (as in
+# tests/test_relocalization.py) before frame RELOC_LIVE_AT: the frame after
+# it relocalises against the live pool (se3_gram_batch at P =
+# RELOC_WINDOW); a noise frame after the last orbit frame, then frames 0, 1
+# and 2 again: frame 0 relocalises against the archive (P = 64) and the
+# archived keyframe it matches comes back to life. Each relocalised pose
+# within RELOC_POSE_BOUND_M of the truth after the trajectory's rigid
+# alignment (the card reads 0.129 m at frame 30 and 0.085 m at frame 0, the
+# port on a CPU 0.094 and 0.095 m; the run's median 0.077 m). As in
+# tests/test_relocalization.py, the
+# lost check's error threshold is strict: with the default 0.3 a noise frame
+# tracks (its error per pixel reads 0.062 in this room, a tracked frame's
+# at most 3e-4; the JAX facade runs the same check).
+RELOC_ERROR_THRESHOLD = 0.01
+RELOC_WINDOW = 8
+RELOC_FRAMES = 60
+RELOC_LIVE_AT = 30
+RELOC_POSE_BOUND_M = 0.20
 
 
 def large_map_links():
@@ -503,8 +581,10 @@ def phase_kernels(dev, first_design=None):
     log(f"Gram kernels, edge cases: {n_extra} more checks against the twins "
         f"at {ODD_HW[0]}x{ODD_HW[1]} (CS 64, 32, 8) and "
         f"{ODD_HW_UNALIGNED[0]}x{ODD_HW_UNALIGNED[1]} (CS 32, 5), at the "
-        f"mapper's batch sizes P = {MAPPER_BUCKETS} and tracking batches "
-        f"P = {SE3_EXTRA_P} at the three levels, P = 1, all "
+        f"mapper's batch sizes P = {MAPPER_BUCKETS}, tracking batches "
+        f"P = {SE3_EXTRA_P} and the loop paths' P = {LOOP_PS} (candidates "
+        f"in a pool of their own, one current frame, interp) at the three "
+        f"levels, P = 1, all "
         f"factors inactive (G exactly 0); no active bit-identical to all "
         f"active at P = 1 and 128; repeated launches bit-identical, also "
         f"after a launch at another P and size")
@@ -525,6 +605,8 @@ def phase_kernels(dev, first_design=None):
         r["max_abs_err"] = w["abs"]
         r["max_rel_err"] = {k: w[k] for k in ("jtj", "jtr", "res", "g")}
     out["se3_gram_batch"]["p8_sampled"] = p8_sampled
+    out["se3_gram_batch"]["loop_ps"] = loop_gram_times(dev, K, cams, levels,
+                                                        q, t)
     out["se3_gram_batch"]["empty_launch_ms"] = empty_ms
     for name, per_level in results.items():
         out[name]["by_level"] = per_level
@@ -532,6 +614,58 @@ def phase_kernels(dev, first_design=None):
     out.update(phase_warp_kernels(dev, K, cams, levels, q, t, empty_ms,
                                   first_design))
     return out
+
+
+def loop_gram_case(dev, K, P, planes, cam, q, t):
+    """(args, kw) of se3_gram_batch as the loop paths call it: P candidates
+    (keyframes of the pool, repeated past K) in a pool of their own, src =
+    arange(P), one current frame (keyframe 5) in a pool of one, dst = 0,
+    interp gradients; each candidate's pose to the current frame
+    perturbed."""
+    import torch
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
+
+    idx = torch.arange(P, device=dev) % K
+    cur = SE3(q[5:6].expand(P, 4), t[5:6].expand(P, 3))
+    pose = perturb(se3m.relative_pose(cur, SE3(q[idx], t[idx])), seed=20 + P)
+    kp = sg.make_sfm_params(pose, cam, 1, 0.0, 0.3, 2.0)
+    src = torch.arange(P, dtype=torch.int32, device=dev)
+    dst = torch.zeros(P, dtype=torch.int32, device=dev)
+    return ((kp, src, dst, planes["img"][idx].contiguous(),
+             planes["dpt"][idx].contiguous(), planes["img"][5:6], None, None),
+            dict(active=torch.ones(P, dtype=torch.int32, device=dev),
+                 grad_mode="interp"))
+
+
+def loop_gram_times(dev, K, cams, levels, q, t):
+    """se3_gram_batch at the loop paths' P on the finest level: kernel,
+    twin and bound, one row a P."""
+    import torch
+    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
+
+    rows = []
+    for P in LOOP_PS:
+        args, kw = loop_gram_case(dev, K, P, levels[0], cams[0], q, t)
+        kw = dict(kw, active=None)       # as the loop paths call it
+        Gp = sg.se3_gram_batch_plain(*args, **kw)
+        N = H * W
+        # P candidate images and depths and the current image read once;
+        # params in, G out
+        bms, by = bound((2 * P + 1) * N * 4 + P * (sg.PARAM_DIM + 64) * 4,
+                        float(Gp[:, 7, 7].sum()) * (72 + 90))
+        rows.append(dict(
+            ms=cuda_ms(lambda: sg.se3_gram_batch(*args, **kw), iters=50),
+            plain_ms=cuda_ms(lambda: sg.se3_gram_batch_plain(*args, **kw),
+                             iters=5),
+            bound_ms=bms, bound_by=by, shape=f"P={P} {H}x{W} interp, loop"))
+    for r in rows:
+        log(f"se3_gram_batch at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+    torch.cuda.synchronize()
+    return rows
 
 
 def gram_edge_checks(dev, K, cams, levels, q, t, record):
@@ -634,6 +768,13 @@ def gram_edge_checks(dev, K, cams, levels, q, t, record):
     for P in SE3_EXTRA_P:
         for l, lv in enumerate(levels):
             against_twin("se3_gram_batch", *se3_case(P, lv, cams[l], "sampled"), 6)
+            n += 1
+    # the loop paths' batches: verification and relocalisation, each with
+    # a strip plan of its own
+    for P in LOOP_PS:
+        for l, lv in enumerate(levels):
+            against_twin("se3_gram_batch",
+                         *loop_gram_case(dev, K, P, lv, cams[l], q, t), 6)
             n += 1
     # one factor; every factor inactive
     args, kw = sfm_case(1, levels[0], cams[0], 32, "tukey", "interp", True,
@@ -1227,6 +1368,7 @@ def phase_rep_ops(dev):
     from deepfactors_tpu_torch.geometry.camera import PinholeCamera
     from deepfactors_tpu_torch.geometry.se3 import SE3
     from deepfactors_tpu_torch.io import synth
+    from deepfactors_tpu_torch.loop import vocabulary as vb
     from deepfactors_tpu_torch.ops import image as ip
     from deepfactors_tpu_torch.ops import sparse_factors as sf
 
@@ -1269,6 +1411,38 @@ def phase_rep_ops(dev):
     assert nbits.max(initial=0) <= 1 and nbits.sum() <= 2, nbits
     n_kp = [int(f.valid.sum()) for f in feats["cpu"]]
     timed("detect_ms", lambda: det.detect_pyramid(pyr[dev][0], dcfg))
+
+    # BoW with the shipped vocabulary, on the CPU's descriptors on both
+    # sides: the words of every descriptor, and the similarities of the
+    # frames' vectors against a loop database of K + A = 96 rows
+    voc = {d: vb.default_vocabulary(device=d) for d in ("cpu", dev)}
+    for f in feats["cpu"]:
+        assert torch.equal(vb.assign_words(voc["cpu"], f.descriptor),
+                           vb.assign_words(voc[dev],
+                                           f.descriptor.to(dev)).cpu()), \
+            "BoW words"
+    bows = {d: torch.stack([vb.bow_vector(voc[d], f.descriptor.to(d),
+                                          f.valid.to(d))
+                            for f in feats["cpu"]]) for d in ("cpu", dev)}
+    g = torch.Generator().manual_seed(5)
+    db = torch.rand((96, 256), generator=g)
+    db = db / db.sum(dim=1, keepdim=True)
+    db[:2] = bows["cpu"]
+    db_ok = torch.rand(96, generator=g) > 0.3
+    db_ok[:2] = True
+    bow_err = 0.0
+    for i in range(2):
+        sc = vb.similarity(bows["cpu"][i], db, db_ok)
+        sg_ = vb.similarity(bows[dev][i], db.to(dev), db_ok.to(dev)).cpu()
+        assert torch.equal(torch.isinf(sc), torch.isinf(sg_))
+        bow_err = max(bow_err, float((sc - sg_)[db_ok].abs().max()))
+    assert bow_err <= BOW_SIM_TOL, bow_err
+    fdev = [f.descriptor.to(dev) for f in feats["cpu"]]
+    vdev = [f.valid.to(dev) for f in feats["cpu"]]
+    timed("bow_ms", lambda: vb.bow_vector(voc[dev], fdev[0], vdev[0]))
+    db_dev, ok_dev = db.to(dev), db_ok.to(dev)
+    timed("similarity_ms", lambda: vb.similarity(bows[dev][0], db_dev,
+                                                 ok_dev))
 
     # matching both ways, on the CPU's descriptors on both sides
     f0, f1 = feats["cpu"]
@@ -1356,7 +1530,8 @@ def phase_rep_ops(dev):
         f"{inl.sum(-1).tolist()} (card == CPU, {int(near.sum())} matches on "
         f"the threshold), descriptor bits differing card/CPU "
         f"{int(nbits.sum())}; reprojection_system JtJ {err_jtj:.2e} Jtr "
-        f"{err_jtr:.2e} of each block's max (tol {REP_SYS_TOL})")
+        f"{err_jtr:.2e} of each block's max (tol {REP_SYS_TOL}); BoW words "
+        f"card == CPU, similarities within {bow_err:.2e} (tol {BOW_SIM_TOL})")
     log("rep ops on the card, device ms / host ms a call: detect_pyramid "
         "{detect_ms:.3f} / {detect_ms_host:.2f}, match (2 directions) "
         "{match_ms:.3f} / {match_ms_host:.2f}, draw + RANSAC (2 directions, "
@@ -1365,7 +1540,10 @@ def phase_rep_ops(dev):
         "zero-padded {svd_9x9_ms:.3f} / {svd_9x9_ms_host:.2f}), "
         "reprojection_system P=2 {rep_system_ms_p2:.3f} / "
         "{rep_system_ms_p2_host:.2f}, P=32 {rep_system_ms_p32:.3f} / "
-        "{rep_system_ms_p32_host:.2f}".format(**out) + f"; {smi_line()}")
+        "{rep_system_ms_p32_host:.2f}, bow_vector (128 descriptors, 256 "
+        "words) {bow_ms:.3f} / {bow_ms_host:.2f}, similarity (96 rows) "
+        "{similarity_ms:.3f} / {similarity_ms_host:.2f}".format(**out)
+        + f"; {smi_line()}")
     return out
 
 
@@ -1427,15 +1605,35 @@ def stat(v):
 
 
 def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
-               max_factors, frame_dist_threshold=0.12, use_reprojection=False):
+               max_factors, frame_dist_threshold=0.12, use_reprojection=False,
+               loop_closure=False, schedule=None,
+               tracking_error_threshold=0.3,
+               loop_active_window=LOOP_ACTIVE_WINDOW,
+               loop_max_dist=LOOP_MAX_DIST, time_parts=True, trace=None,
+               ransac_draw=None):
     """The sequential facade over the first ``n_frames`` of the room orbit,
     bootstrap on frames 0 and 2. Sets the launch counts to 0 first. Returns
     the facade, the scene's camera and frames, and the run's readings; with
-    reprojection factors on also the per-event match and inlier counts and
-    the host milliseconds of detection, match + RANSAC and rep assembly."""
+    reprojection factors on also the per-event match and inlier counts;
+    with loop closure on (tools/bench_e2e.py's loop settings and the shipped
+    vocabulary) also every dense verification (frame, candidates, kernel
+    launches, inlier shares) and every relocalisation. With ``time_parts``
+    also the host milliseconds of the parts, each timed between two
+    synchronises: evictions, detection, match + RANSAC, rep assembly, each
+    dense verification, each relocalisation and each ``detect_pyramid``
+    call. Those synchronises fall inside the frame latencies, so a run
+    whose frame latencies are reported keeps ``time_parts`` off.
+    ``schedule`` is the list of frames fed after the bootstrap, an index of
+    the orbit or -1 for a frame of noise (default: 3 .. n_frames - 1).
+    ``trace``: a file for port_tools/decision_trace.py's per-frame trace;
+    ``ransac_draw``: the mapper's RANSAC draw hook (default: its own).
+    On the CPU (``dev="cpu"``) the kernels' plain twins run and the launch
+    counts stay 0."""
     import torch
     from deepfactors_tpu_torch.geometry.camera import PinholeCamera
+    from deepfactors_tpu_torch.features import detector as det
     from deepfactors_tpu_torch.io import synth
+    from deepfactors_tpu_torch.loop.vocabulary import default_vocabulary
     from deepfactors_tpu_torch.mapping.mapper import MapperConfig
     from deepfactors_tpu_torch.system import DeepFactors, SystemConfig
     from deepfactors_tpu_torch.utils import tum_io
@@ -1453,8 +1651,12 @@ def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
             connection_mode="LASTN", max_back_connections=2,
             use_reprojection=use_reprojection),
         dist_threshold=2.0, tracking_dist_threshold=5.0,
-        frame_dist_threshold=frame_dist_threshold, loop_closure=False)
-    df = DeepFactors(cfg, cam, decoder=decoder, device=dev)
+        tracking_error_threshold=tracking_error_threshold,
+        frame_dist_threshold=frame_dist_threshold, loop_closure=loop_closure,
+        loop_active_window=loop_active_window, loop_max_dist=loop_max_dist)
+    df = DeepFactors(cfg, cam, decoder=decoder,
+                     vocabulary=(default_vocabulary(device=dev)
+                                 if loop_closure else None), device=dev)
 
     # evictions: the victims the callback saw, and the host milliseconds of
     # each eviction and of its device part (each ending in a synchronise)
@@ -1466,13 +1668,19 @@ def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
         on_evict(slot, kid)
 
     df.mapper.evict_callback = record
+    if ransac_draw is not None:
+        df.mapper.ransac_draw = ransac_draw
+    sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
 
     def timed(fn, sink):
+        if not time_parts:
+            return fn
+
         def wrapper(*a, **kw):
-            torch.cuda.synchronize()
+            sync()
             t = time.perf_counter()
             out = fn(*a, **kw)
-            torch.cuda.synchronize()
+            sync()
             sink.append((time.perf_counter() - t) * 1e3)
             return out
         return wrapper
@@ -1504,47 +1712,122 @@ def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
 
         m.ransac_draw = counting_draw
         m._rep_pairs = counting_pairs
+    # loop closure: each verification of a candidate set (frame, padded
+    # batch, kernel launches; its packed result, read after the run), each
+    # relocalisation attempt (frame, accepted, resurrection, launches) and,
+    # with time_parts, the host ms of each and of every detect_pyramid call
+    verifies, relocs, detect_ms = [], [], []
+    frame_no = [0]
+    orig_detect = det.detect_pyramid
+    if loop_closure:
+        ld = df.loop_detector
+        verify = ld._verify
 
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    df.bootstrap_two_frames(frames[0], frames[2], frame_gap=2)
-    torch.cuda.synchronize()
-    boot_s = time.perf_counter() - t0
-    df.trajectory = [(0.0, df.pose_wc)]
-    # per event kind: host milliseconds of each frame, and the kernel
-    # launches the kind made in all
-    ms_by = {"tracking-only frames": [], "one-way-frame events": [],
-             "keyframe events": []}
-    launches_by = {k: dict.fromkeys(launch_counts(), 0) for k in ms_by}
-    launches_by["bootstrap"] = launch_counts()
-    n_frames_enq = int(df.mapper.frames.next_id)
-    ate_at = {}     # frames fed -> (rigid ATE so far, keyframes built, evictions)
-    for i in range(3, n_frames):
+        def counting_verify(*a):
+            before = launch_counts()["se3_gram_batch"]
+            t = time.perf_counter()
+            out = verify(*a)
+            if time_parts:
+                sync()
+            verifies.append(dict(
+                frame=frame_no[0], C=int(out.shape[0]), packed=out,
+                launches=launch_counts()["se3_gram_batch"] - before,
+                ms=(time.perf_counter() - t) * 1e3 if time_parts else None))
+            return out
+
+        ld._verify = counting_verify
+        det.detect_pyramid = timed(orig_detect, detect_ms)
+    relocalize = df._relocalize
+
+    def counting_relocalize(img):
+        before = launch_counts()["se3_gram_batch"]
         n_kf = df.mapper._next_kid
-        before = launch_counts()
-        t1 = time.perf_counter()
-        df.process_frame(float(i), frames[i])
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t1) * 1e3
-        n_fr = int(df.mapper.frames.next_id)
-        kind = ("keyframe events" if df.mapper._next_kid > n_kf else
-                "one-way-frame events" if n_fr > n_frames_enq else
-                "tracking-only frames")
-        n_frames_enq = n_fr
-        ms_by[kind].append(dt)
-        for k, v in launch_counts().items():
-            launches_by[kind][k] += v - before[k]
-        if (i + 1) % 20 == 0:
-            est = df.trajectory
-            ate_at[i + 1] = (round(tum_io.ate_rmse(
-                est, [(ts, poses[int(ts)]) for ts, _ in est]), 4),
-                df.mapper._next_kid, df.n_evictions)
+        if time_parts:
+            sync()
+        t = time.perf_counter()
+        ok = relocalize(img)
+        if time_parts:
+            sync()
+        relocs.append(dict(frame=frame_no[0], ok=ok,
+                           resurrected=df.mapper._next_kid > n_kf,
+                           launches=launch_counts()["se3_gram_batch"] - before,
+                           ms=(time.perf_counter() - t) * 1e3
+                           if time_parts else None))
+        return ok
+
+    df._relocalize = counting_relocalize
+    # the module-level patch of detect_pyramid is undone however the run ends
+    try:
+        reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        df.bootstrap_two_frames(frames[0], frames[2], frame_gap=2)
+        sync()
+        boot_s = time.perf_counter() - t0
+        close_trace = None
+        if trace:
+            sys.path.insert(0, os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "port_tools"))
+            import decision_trace
+            close_trace = decision_trace.attach(df, trace)
+        df.trajectory = [(0.0, df.pose_wc)]
+        # per event kind: host milliseconds of each frame, and the kernel
+        # launches the kind made in all
+        ms_by = {"tracking-only frames": [], "one-way-frame events": [],
+                 "keyframe events": []}
+        launches_by = {k: dict.fromkeys(launch_counts(), 0) for k in ms_by}
+        launches_by["bootstrap"] = launch_counts()
+        n_frames_enq = int(df.mapper.frames.next_id)
+        # frames fed -> (rigid ATE so far, keyframes built, evictions)
+        ate_at = {}
+        noise = np.random.RandomState(0).rand(H, W).astype(np.float32)
+        loop_at = []    # (frame, loop link) of every accepted loop
+        if schedule is None:
+            schedule = list(range(3, n_frames))
+        for k, i in enumerate(schedule):
+            n_kf = df.mapper._next_kid
+            n_links = len(df.loop_links)
+            before = launch_counts()
+            frame_no[0] = i
+            t1 = time.perf_counter()
+            # a noise frame carries a timestamp no orbit frame has
+            df.process_frame(float(i) if i >= 0 else 1e6 + k,
+                             frames[i] if i >= 0 else noise)
+            sync()
+            dt = (time.perf_counter() - t1) * 1e3
+            n_fr = int(df.mapper.frames.next_id)
+            kind = ("keyframe events" if df.mapper._next_kid > n_kf else
+                    "one-way-frame events" if n_fr > n_frames_enq else
+                    "tracking-only frames")
+            n_frames_enq = n_fr
+            ms_by[kind].append(dt)
+            for k_, v in launch_counts().items():
+                launches_by[kind][k_] += v - before[k_]
+            loop_at += [(i, str(link)) for link in df.loop_links[n_links:]]
+            if (i + 1) % 20 == 0 and i == k + 3:
+                est = df.trajectory
+                ate_at[i + 1] = (round(tum_io.ate_rmse(
+                    est, [(ts, poses[int(ts)]) for ts, _ in est]), 4),
+                    df.mapper._next_kid, df.n_evictions)
+    finally:
+        det.detect_pyramid = orig_detect
     total_s = time.perf_counter() - t0
+    if close_trace is not None:
+        close_trace()
+    # the verified candidates: the batch is padded by repeating candidate 0
+    for v in verifies:
+        pk = v.pop("packed").cpu().numpy()
+        n = len(pk)
+        while n > 1 and np.array_equal(pk[n - 1], pk[0]):
+            n -= 1
+        v.update(cands=n, inliers=[round(float(x), 4) for x in pk[:n, 7]],
+                 t_norm=[round(float(x), 4) for x in
+                         np.linalg.norm(pk[:n, 4:7], axis=-1)])
 
     est = df.trajectory
     for _, p in est:
         assert np.isfinite(p.q).all() and np.isfinite(p.t).all(), "non-finite pose"
+    assert all(ts < len(poses) for ts, _ in est), "a noise frame was tracked"
     gt = [(ts, poses[int(ts)]) for ts, _ in est]
     ate = tum_io.ate_rmse(est, gt)
     tracked = 1.0 - df.n_lost_frames / max(df.n_frames, 1)
@@ -1552,8 +1835,9 @@ def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
         f"{total_s:.2f} s, {1e3 * total_s / n_frames:.1f} ms/frame overall")
     for kind, v in ms_by.items():
         log(f"{tag} {kind}: {stat(v)}")
-    log(f"{tag} evictions: {stat(evict_ms)}; of which linearise + Schur + "
-        f"PSD projection on the card: {stat(eliminate_ms)}")
+    if time_parts:
+        log(f"{tag} evictions: {stat(evict_ms)}; of which linearise + Schur "
+            f"+ PSD projection on the card: {stat(eliminate_ms)}")
     log(f"{tag} keyframes built {df.mapper._next_kid}, live "
         f"{len(df.mapper.kf_slots)}, evicted {df.n_evictions}, one-way frames "
         f"{len(ms_by['one-way-frame events'])}, tracked fraction "
@@ -1569,15 +1853,32 @@ def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
             f"{int(m.rep_pool.active.sum())}; GN iterations assembling rep "
             f"factors {m.rep_stats['iterations']} ({m.rep_stats['factor_terms']}"
             f" factor terms)")
+    if use_reprojection and time_parts:
         log(f"{tag} keyframe-event parts, host ms each ending in a "
             f"synchronise: detection per keyframe built {stat(rep_ms['detect'])}"
             f"; match + RANSAC per event {stat(rep_ms['match_ransac'])}; rep "
             f"assembly per GN iteration {stat(rep_ms['rep_assembly'])}; "
             f"{smi_line() if dev != 'cpu' else 'cpu'}")
+    if loop_closure:
+        log(f"{tag} loops: local links {df.n_local_links}, live global loops "
+            f"{df.n_live_global_loops}, archived loops {df.n_archived_loops}; "
+            f"accepted at (frame, link) {loop_at}; relocalisations "
+            f"{df.n_relocalizations} of {len(relocs)} attempts: {relocs}")
+        log(f"{tag} dense verifications of global-loop candidates: "
+            f"{len(verifies)}; (frame, candidates, padded batch, "
+            f"se3_gram_batch launches, inlier shares, translations m): "
+            + str([(v["frame"], v["cands"], v["C"], v["launches"],
+                    v["inliers"], v["t_norm"]) for v in verifies]))
+        if time_parts:
+            log(f"{tag} loop-closure parts, host ms each between two "
+                f"synchronises: dense verification "
+                f"{stat([v['ms'] for v in verifies])}; detect_pyramid (every "
+                f"frame and every keyframe built) {stat(detect_ms)}; "
+                f"{smi_line() if dev != 'cpu' else 'cpu'}")
     return dict(df=df, cam=cam, frames=frames, ate=ate, tracked=tracked,
                 evicted=evicted, ate_at=ate_at, rep_counts=counts,
-                rep_ms=rep_ms, ms_by=ms_by)
-
+                rep_ms=rep_ms, ms_by=ms_by, verifies=verifies, relocs=relocs,
+                detect_ms=detect_ms, loop_at=loop_at, poses=poses)
 
 def phase_e2e(dev, decoder):
     """Phase 4: 60 frames in a window of 32 keyframes (no eviction), in the
@@ -1674,6 +1975,92 @@ def phase_long_run(dev, decoder):
     path = ("se3_gram_batch", "sfm_gram_batch", "sfm_error_batch",
             "se3_warp_batch")
     assert all(launches[k] > 0 for k in path), f"kernel not launched: {launches}"
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 7: loop closure and relocalisation
+# ----------------------------------------------------------------------------
+
+def phase_loop(dev, decoder):
+    """Phase 7: the flagship configuration (tools/bench_e2e.py's
+    build_system: reprojection factors and loop closure on) on
+    LOOP_FRAMES frames of random_room(LOOP_SCENE_SEED)."""
+    # its frame latencies are reported: no part is timed between
+    # synchronises (port_tools/facade_run.py --time-parts times them)
+    r = run_facade(dev, decoder, "loop closure", scene_seed=LOOP_SCENE_SEED,
+                   n_frames=LOOP_FRAMES, max_keyframes=32, max_factors=128,
+                   use_reprojection=True, loop_closure=True, time_parts=False)
+    launches = launch_counts()
+    df = r["df"]
+    assert df.n_lost_frames == 0 and r["tracked"] == 1.0, "frames lost"
+    counts = (df.n_local_links, df.n_live_global_loops, df.n_archived_loops)
+    assert df.n_live_global_loops + df.n_archived_loops >= 1, \
+        "no global loop accepted"
+    assert counts == LOOP_COUNTS_JAX, \
+        f"loop counters {counts}, the JAX facade's {LOOP_COUNTS_JAX}"
+    # the live loop: its frame, and the link (current keyframe, target)
+    assert len(r["loop_at"]) == 1, r["loop_at"]
+    (frame, link), = r["loop_at"]
+    at, src, dst = LOOP_AT_JAX
+    assert abs(frame - at) <= LOOP_FRAME_TOL and link == str((src, dst)), \
+        (r["loop_at"], LOOP_AT_JAX)
+    # each dense verification: the candidates padded to loop_max_candidates,
+    # one se3_gram_batch launch per GN iteration of the C2F schedule
+    iters = sum(df.cfg.tracking_iterations)
+    assert r["verifies"] and all(
+        v["C"] == df.cfg.loop_max_candidates and v["launches"] == iters
+        for v in r["verifies"]), r["verifies"]
+    assert r["ate"] < LOOP_ATE_BOUND_M, f"ATE {r['ate']} >= {LOOP_ATE_BOUND_M}"
+    path = ("se3_gram_batch", "sfm_gram_batch", "sfm_error_batch")
+    assert all(launches[k] > 0 for k in path), f"kernel not launched: {launches}"
+    return launches
+
+
+def phase_reloc(dev, decoder):
+    """Phase 7b: two noise frames in an orbit run with loop closure on and
+    a window of RELOC_WINDOW keyframes: the frame after the first
+    relocalises against the live pool, frame 0 after the second against the
+    archive, resurrecting its keyframe."""
+    from deepfactors_tpu_torch.utils import tum_io
+
+    schedule = (list(range(3, RELOC_LIVE_AT)) + [-1]
+                + list(range(RELOC_LIVE_AT, RELOC_FRAMES)) + [-1, 0, 1, 2])
+    r = run_facade(dev, decoder, "relocalisation", scene_seed=LOOP_SCENE_SEED,
+                   n_frames=RELOC_FRAMES, max_keyframes=RELOC_WINDOW,
+                   max_factors=4 * RELOC_WINDOW, use_reprojection=True,
+                   loop_closure=True, schedule=schedule,
+                   tracking_error_threshold=RELOC_ERROR_THRESHOLD)
+    launches = launch_counts()
+    df = r["df"]
+    assert df.n_evictions >= 1, "no keyframe was archived"
+    assert df.n_lost_frames == 2 and df.n_relocalizations == 2, \
+        (df.n_lost_frames, df.n_relocalizations, r["relocs"])
+    ok = [x for x in r["relocs"] if x["ok"]]
+    iters = sum(df.cfg.tracking_iterations)
+    # the live pool: one verification at P = RELOC_WINDOW
+    assert ok[0]["frame"] == RELOC_LIVE_AT and not ok[0]["resurrected"]
+    assert ok[0]["launches"] == iters, ok[0]
+    # the archive: the live pool fails, then one verification at P = 64,
+    # and the archived keyframe is built again
+    assert ok[1]["frame"] == 0 and ok[1]["resurrected"], ok[1]
+    assert ok[1]["launches"] == 2 * iters, ok[1]
+    # each relocalised frame's error after the trajectory's rigid alignment
+    # (the ATE's); frame 0 also stands at the start of the trajectory, so
+    # its last entry is the relocalised one
+    est = df.trajectory
+    err = tum_io.ate_errors(est, [(ts, r["poses"][int(ts)]) for ts, _ in est])
+    stamps = [ts for ts, _ in est]
+    errs = {}
+    for f in (RELOC_LIVE_AT, 0):
+        errs[f] = float(err[len(stamps) - 1 - stamps[::-1].index(float(f))])
+        assert errs[f] < RELOC_POSE_BOUND_M, (f, errs[f])
+    assert r["tracked"] < 1.0 and len(df.trajectory) == len(schedule) - 2 + 1
+    log(f"relocalisation: live at frame {RELOC_LIVE_AT} and from the archive "
+        f"at frame 0 (keyframe resurrected), error to the truth after the "
+        f"rigid alignment {errs} m (bound {RELOC_POSE_BOUND_M}; median over "
+        f"the run {float(np.nanmedian(err)):.4f} m); {df.n_evictions} "
+        f"evictions")
     return launches
 
 
@@ -1974,6 +2361,8 @@ def main():
     phase_rep_ops(dev)
     decoder = phase_decoder(dev)
     launches_e2e = phase_e2e(dev, decoder)
+    launches_loop = phase_loop(dev, decoder)
+    launches_reloc = phase_reloc(dev, decoder)
     launches = phase_long_run(dev, decoder)
     parallel = {"dry_run": phase_dryrun(dev),
                 "large_map": large_map_run(large_map_setup(dev, decoder)),
@@ -2002,6 +2391,8 @@ def main():
         # the parallel entry points (phase 6) for the two it does not;
         # launches_by_path gives every path's count
         by_path = {"e2e_60_frames_rep": launches_e2e[name],
+                   "loop_closure": launches_loop[name],
+                   "relocalisation": launches_reloc[name],
                    "long_run": launches[name],
                    **{k: v[name] for k, v in parallel.items()}}
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -2014,8 +2405,9 @@ def main():
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"), "shape": r["shape"],
                      **{k: r[k] for k in ("by_level", "by_shape",
-                                          "p8_sampled", "empty_launch_ms",
-                                          "ms_is", "in_context")
+                                          "p8_sampled", "loop_ps",
+                                          "empty_launch_ms", "ms_is",
+                                          "in_context")
                         if k in r}})
     log(json.dumps({"kernels": rows}))
     log(smi)

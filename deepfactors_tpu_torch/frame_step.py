@@ -1,20 +1,25 @@
 """The per-frame step: image pyramid, tracking and the decision probe.
 
-PyTorch port of ``deepfactors_tpu/frame_step.py`` on its ``with_loop=False``
-path (features and BoW belong to the loop-closure slice). Per frame
+PyTorch port of ``deepfactors_tpu/frame_step.py``. Per frame
 (ProcessFrame, deepfactors.cpp:220-366):
 
     pyramid build + Sobel           (UploadLiveFrame, deepfactors.cpp:616-630)
     keyframe-pool gather            (the active keyframe's pyramid, by index)
     coarse-to-fine SE(3) tracking   (CameraTracker::TrackFrame,
                                      camera_tracker.cpp:42-91)
+    feature detect + BoW vector     (with loop closure: BRISK detect + DBoW2
+                                     transform, deepfactors.cpp:634-680)
     every per-frame decision scalar (CheckTrackingLost :852,
                                      NewKeyframeRequired :747,
-                                     NewFrameRequired :784, SelectKeyframe :813)
+                                     NewFrameRequired :784, SelectKeyframe
+                                     :813, loop similarities,
+                                     loop_detector.cpp:96-224)
 
-The host reads back ONE packed probe vector (pose + distances + stats, the
-layout of ``probe_layout``, identical to the JAX package's) and makes every
-control-flow decision from it; pyramids stay on the device.
+The host reads back ONE packed probe vector (pose + distances + BoW
+similarities + stats, the layout of ``probe_layout``, identical to the JAX
+package's) and makes every control-flow decision from it; pyramids,
+features and the BoW vector stay on the device for the keyframe and loop
+events that use them.
 
 Tracking state: the camera world pose is the only persistent state. Each
 frame recomputes pose_ck = pose_wc^-1 * pose_wk from the current keyframe
@@ -28,9 +33,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .features import detector as det
 from .geometry import se3 as se3m
 from .geometry.camera import PinholeCamera, camera_pyramid
 from .geometry.se3 import SE3
+from .loop import vocabulary as vb
 from .ops import image as ip
 from .tracking.tracker import TrackerConfig, track_c2f
 
@@ -39,6 +46,8 @@ Tensor = torch.Tensor
 
 class FrameStepOut(NamedTuple):
     probe: Tensor     # packed decision vector (see probe_layout)
+    feat: object      # features.detector.Features, or None without loops
+    bow_v: Tensor     # [V] BoW vector (None without loops)
     img_pyr: tuple    # per-level [h, w] device tensors
     grad_pyr: tuple   # per-level [h, w, 2] device tensors
     wc_q: Tensor      # [4] tracked world pose
@@ -48,7 +57,10 @@ class FrameStepOut(NamedTuple):
 def probe_layout(K: int, F: int, S: int = None):
     """Slice offsets of the packed probe vector:
     [wc_q(4) | wc_t(3) | d_full(K) | d_trans(K) | fr_trans(F) | sims(S) |
-     rot | inliers | error]."""
+     rot | inliers | error].
+
+    ``S`` is the BoW-similarity length: K + archive_cap when the loop
+    detector keeps an archive of evicted keyframes, else K."""
     if S is None:
         S = K
     off = {}
@@ -69,24 +81,25 @@ def upload_frame(img, device) -> Tensor:
 
 
 def build_frame_fn(tracker_cfg: TrackerConfig, cam: PinholeCamera,
-                   levels: int, with_loop: bool):
+                   levels: int, with_loop: bool, det_cfg=None):
     """Build the per-frame function.
 
     Call signature:
       frame_fn(img, kf_imgs, kf_dpts, kf_q, kf_t, fr_q, fr_t, curr_kf,
-               prev_q, prev_t, prev2_q, prev2_t)
+               prev_q, prev_t, prev2_q, prev2_t, voc=None, db=None,
+               db_valid=None)
     where kf_imgs/kf_dpts are the map's per-level [K, h, w] pools, curr_kf
     is the active keyframe slot (int) and (prev2_q, prev2_t) is the pose one
     frame before prev (constant-velocity prediction; pass prev for a
-    zero-velocity start)."""
-    if with_loop:
-        raise NotImplementedError(
-            "the frame step's loop-closure features (BRISK-like detector + "
-            "BoW) come with the loop-closure slice of the port")
+    zero-velocity start). With ``with_loop`` the frame's keypoints are
+    detected over its pyramid (``det_cfg``), and its BoW vector against
+    ``voc`` is scored against the loop database ``db`` [S, V] /
+    ``db_valid`` [S]; without it the probe's similarities are -inf."""
     cams = camera_pyramid(cam, levels)
 
     def frame_fn(img, kf_imgs, kf_dpts, kf_q, kf_t, fr_q, fr_t, curr_kf,
-                 prev_q, prev_t, prev2_q, prev2_t):
+                 prev_q, prev_t, prev2_q, prev2_t, voc=None, db=None,
+                 db_valid=None):
         img = upload_frame(img, kf_q.device)
         img_pyr = tuple(ip.build_pyramid(img, levels))
         grad_pyr = tuple(ip.build_gradient_pyramid(img_pyr))
@@ -110,10 +123,17 @@ def build_frame_fn(tracker_cfg: TrackerConfig, cam: PinholeCamera,
         fr_trans = se3m.pose_distance(SE3(fr_q, fr_t), pose_wc, 1.0, 0.0)
         rel_q = se3m.quat_mul(kf_q[curr_kf], se3m.quat_conj(pose_wc.q))
         rot = torch.linalg.norm(se3m.so3_log(rel_q))
-        # no loop detector in this slice: the BoW similarities stay -inf
-        sims = torch.full((kf_q.shape[0],), float("-inf"), device=kf_q.device)
+        if with_loop:
+            feat = det.detect_pyramid(img_pyr, det_cfg)
+            bow_v = vb.bow_vector(voc, feat.descriptor, feat.valid)
+            sims = vb.similarity(bow_v, db, db_valid)
+        else:
+            feat = bow_v = None
+            sims = torch.full((kf_q.shape[0],), float("-inf"),
+                              device=kf_q.device)
         probe = torch.cat([pose_wc.q, pose_wc.t, d_full, d_trans, fr_trans,
                            sims, torch.stack([rot, stats[0], stats[1]])])
-        return FrameStepOut(probe, img_pyr, grad_pyr, pose_wc.q, pose_wc.t)
+        return FrameStepOut(probe, feat, bow_v, img_pyr, grad_pyr, pose_wc.q,
+                            pose_wc.t)
 
     return frame_fn

@@ -191,3 +191,36 @@ def render_sequence(scene: RoomScene, cam: PinholeCamera, poses, height: int,
         imgs.append(img.cpu().numpy())
         dpts.append(dpt.cpu().numpy())
     return (imgs, dpts) if with_depth else imgs
+
+
+class OracleDecoder:
+    """Ground-truth 'decoder': each frame's exact proximity pyramid with a
+    zero code Jacobian, the perfect-decoder bound (the JAX package's
+    ``io/synth.OracleDecoder``).
+
+    Frames are looked up by their image content, so it drops into the
+    mapper's decoder slot unchanged: ``raw_outputs_T`` gives the outputs
+    the mapper reads from ``models/decoder.Decoder`` (prx0 per level, the
+    feature-major code Jacobian, stdev, a zero predicted code)."""
+
+    def __init__(self, frames, depths, levels: int, code_size: int,
+                 avg_dpt: float = 2.0):
+        self.levels = levels
+        self.code_size = code_size
+        self._lut = {}
+        for img, dpt in zip(frames, depths):
+            key = np.asarray(img, np.float32).tobytes()
+            self._lut[key] = avg_dpt / (avg_dpt + np.asarray(dpt, np.float32))
+
+    def raw_outputs_T(self, img: Tensor) -> dict:
+        prx = self._lut[img.detach().cpu().numpy().astype(np.float32).tobytes()]
+        prx_pyr = tuple(ipg.build_pyramid(torch.as_tensor(prx,
+                                                          device=img.device),
+                                          self.levels))
+        CS = self.code_size
+        return dict(
+            prx0=prx_pyr,
+            jac=tuple(torch.zeros((CS,) + p.shape, device=img.device)
+                      for p in prx_pyr),
+            stdev=tuple(torch.zeros_like(p) for p in prx_pyr),
+            code_pred=torch.zeros((CS,), device=img.device))

@@ -35,6 +35,10 @@ pose is archived and its slot reused. ``dump_state`` / ``save_graphs``
 inspect the map; with ``verbose_errors`` every live keyframe-to-keyframe
 factor is evaluated by ``sfm_error_batch``.
 
+Loop closure adds factors through ``enqueue_link`` (a photometric or
+reprojection link between two live keyframes) and ``add_loop_prior`` (an
+absolute pose prior in the marginal store).
+
 Not ported yet (each raises ``NotImplementedError``): geometric factors,
 depth priors, the native scheduler.
 """
@@ -174,9 +178,14 @@ class Mapper:
         # indices [2n, I, 8], one call per keyframe event that matches;
         # survives reset() like the JAX mapper's key chain
         self._rng = torch.Generator(device=self.device).manual_seed(42)
-        self.ransac_draw: Callable = lambda valids, iters: \
-            mt.draw_hypotheses(valids, iters, self._rng)
+        self.ransac_draw: Callable = self._draw_hypotheses
         self.reset()
+
+    def _draw_hypotheses(self, valids, iterations):
+        """The default ``ransac_draw``: uniform draws from the mapper's own
+        generator (a bound method, so that a copy of the mapper draws from
+        its own copy)."""
+        return mt.draw_hypotheses(valids, iterations, self._rng)
 
     def reset(self):
         cfg, dev = self.cfg, self.device
@@ -640,6 +649,45 @@ class Mapper:
         self.frame_marg_host[fslot] = False
         self.sched.add_photo(kf_slot, fslot, True, self.cfg.pho_iters)
         return fslot
+
+    def enqueue_link(self, slot0: int, slot1: int, photo=True, rep=False,
+                     geo=False):
+        """EnqueueLink (mapper.cpp:347-392): loop-closure factors between
+        two live keyframes (photometric for local loops, reprojection for
+        global loops, deepfactors.cpp:248-280). Live frames are
+        marginalised first. A global loop (rep=True) without reprojection
+        factors falls back to a photometric link, so that an accepted loop
+        always adds a factor. Geometric links come with the geometric
+        factor and raise."""
+        if geo:
+            raise NotImplementedError(
+                "geometric loop links come with the geometric factor, a "
+                "later slice of the port")
+        self.marginalize_frames()
+        if rep and not self.cfg.use_reprojection:
+            photo = True
+        if photo:
+            self._add_photo_pair(slot0, slot1, second_removes=True)
+        if rep and self.cfg.use_reprojection:
+            self._add_rep_pairs([(slot0, slot1)])
+
+    def add_loop_prior(self, slot: int, target_pose: SE3, sigma: float = 1.0):
+        """A loop constraint as an absolute pose prior on live keyframe
+        ``slot`` anchored at ``target_pose`` (host arrays or tensors), folded
+        into the marginal-prior store so that every later GN iteration sees
+        it: a 6x6 block of weight 1/sigma² on the pose, the code block zero
+        (the loop says nothing about depth). The facade closes loops against
+        archived keyframes (and seeds live ones) with it."""
+        dev = self.device
+        B = 6 + self.cfg.code_size
+        H = torch.zeros((B, B), device=dev)
+        H.diagonal()[:6] = 1.0 / (sigma * sigma)
+        pose = SE3(torch.as_tensor(target_pose.q, dtype=torch.float32,
+                                   device=dev),
+                   torch.as_tensor(target_pose.t, dtype=torch.float32,
+                                   device=dev))
+        mg.add_prior(self.marginals, slot, H, torch.zeros((B,), device=dev),
+                     pose, self.state.code[slot])
 
     def _add_photo_pair(self, s0: int, s1: int, second_removes: bool = False):
         """Both-way photometric works (mapper.cpp:305-311); the second

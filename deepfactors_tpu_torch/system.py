@@ -4,19 +4,23 @@ PyTorch port of the sequential subset of ``deepfactors_tpu/system.py``
 (reference sources/core/deepfactors.{h,cpp}). Per frame (ProcessFrame,
 deepfactors.cpp:220-366):
 
-  preprocess -> keyframe selection -> frame step (pyramids + C2F tracking +
-  decision probe, one host read) -> CheckTrackingLost
+  preprocess -> (lost: relocalise) -> keyframe selection -> frame step
+  (pyramids + C2F tracking + features and BoW + decision probe, one host
+  read) -> CheckTrackingLost -> loop closure (local photometric link,
+  global loop by BoW retrieval and batched dense verification)
   -> NewKeyframeRequired? EnqueueKeyframe : NewFrameRequired? EnqueueFrame
   -> mapping until no work (or one run if interleave_mapping)
 
 A run may outlive its keyframe window: the mapper evicts the oldest
 keyframe that the facade does not protect (the tracker's keyframe and the
 two newest), and the facade observes each eviction through the mapper's
-``evict_callback``.
+``evict_callback``, which moves the keyframe's loop data into the loop
+detector's archive. A lost frame relocalises against every live keyframe
+at once, then against the archive (resurrecting the matched keyframe).
 
-Sequential only (``pipeline_depth=0``). Loop closure, relocalisation,
-pipelining and the I/O drivers come with later slices: a configuration or
-a run that needs them raises ``NotImplementedError``.
+Sequential only (``pipeline_depth=0``); pipelining and the I/O drivers come
+with later slices, and a configuration that needs them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,12 +31,17 @@ import torch
 
 from . import configure_numerics
 from . import frame_step as fs
+from .features import detector as det
 from .geometry import se3 as se3m
 from .geometry.camera import PinholeCamera
 from .geometry.se3 import SE3
+from .loop.loop_detector import LoopConfig, LoopDetector, _make_verify_fn
 from .mapping.mapper import Mapper, MapperConfig
+from .ops import image as ip
 from .tracking.tracker import CameraTracker, TrackerConfig
 from .utils.timing import tic, toc
+
+Tensor = torch.Tensor
 
 
 class SystemConfig(NamedTuple):
@@ -51,9 +60,19 @@ class SystemConfig(NamedTuple):
     dist_threshold: float = 2.0
     frame_dist_threshold: float = 0.2
     combined_threshold: float = 2.0
-    # loop closure comes with a later slice; the default matches the JAX
-    # package, so a configuration must switch it off explicitly
+    # loop closure (deepfactors_options.h:64-70)
     loop_closure: bool = True
+    loop_max_dist: float = 0.5
+    loop_active_window: int = 10
+    # loop-prior sigma [m / rad]: weight 1/sigma^2 against photometric
+    # Hessians of ~1e3, so that the verified pose out-weighs the window
+    loop_sigma: float = 0.05
+    loop_min_similarity: float = 0.35
+    loop_max_candidates: int = 10
+    # frames to wait after an accepted global loop before detecting again
+    # (consecutive frames of a revisit all match the same target)
+    loop_cooldown: int = 5
+    loop_archive_cap: int = 64    # archive of evicted keyframes (0: none)
     interleave_mapping: bool = False
     pipeline_depth: int = 0               # only 0 (sequential) in this slice
 
@@ -83,11 +102,7 @@ class DeepFactors:
     """System facade (deepfactors.h:53-188), on ``device``."""
 
     def __init__(self, cfg: SystemConfig, cam: PinholeCamera, decoder=None,
-                 device="cuda"):
-        if cfg.loop_closure:
-            raise NotImplementedError(
-                "loop closure comes with a later slice of the port; set "
-                "SystemConfig.loop_closure=False")
+                 vocabulary=None, device="cuda"):
         if cfg.pipeline_depth != 0:
             raise NotImplementedError(
                 "pipelined mode (pipeline_depth > 0) comes with a later slice "
@@ -105,14 +120,37 @@ class DeepFactors:
                 iterations_per_level=cfg.tracking_iterations[:m.pyramid_levels],
                 huber_delta=cfg.tracking_huber_delta),
             cam, device=self.device)
-        self._frame_fn = fs.build_frame_fn(self.tracker.cfg, cam,
-                                           m.pyramid_levels, with_loop=False)
-        self._probe_off, _ = fs.probe_layout(m.max_keyframes, m.max_frames)
+        L = m.pyramid_levels
+        self.loop_detector = LoopDetector(
+            LoopConfig(max_dist=cfg.loop_max_dist,
+                       active_window=cfg.loop_active_window,
+                       min_similarity=cfg.loop_min_similarity,
+                       max_candidates=cfg.loop_max_candidates,
+                       iters_per_level=cfg.tracking_iterations[:L],
+                       huber_delta=cfg.tracking_huber_delta),
+            cam, L, m.max_keyframes, voc=vocabulary,
+            archive_cap=cfg.loop_archive_cap, device=self.device,
+        ) if cfg.loop_closure else None
+        # relocalisation: the loop detector's batched verification over the
+        # whole keyframe pool (P = K) or the archive (P = archive_cap)
+        self._reloc_fn = _make_verify_fn(
+            LoopConfig(iters_per_level=cfg.tracking_iterations[:L],
+                       huber_delta=cfg.tracking_huber_delta,
+                       grad_mode=self.tracker.cfg.grad_mode), cam, L)
+        self._frame_fn = fs.build_frame_fn(
+            self.tracker.cfg, cam, L,
+            with_loop=self.loop_detector is not None,
+            det_cfg=det.DetectorConfig(max_keypoints=max(m.max_keypoints, 64)))
+        S = m.max_keyframes + (self.loop_detector.A
+                               if self.loop_detector is not None else 0)
+        self._probe_off, _ = fs.probe_layout(m.max_keyframes, m.max_frames, S)
         self.reset()
 
     def reset(self):
         self.mapper.reset()
         self.tracker.reset()
+        if self.loop_detector is not None:
+            self.loop_detector.reset()
         self.bootstrapped = False
         self.tracking_lost = False
         self.curr_kf: Optional[int] = None
@@ -120,14 +158,24 @@ class DeepFactors:
                            np.zeros(3, np.float32))
         self.stats = Stats(0.0, float("inf"), 0.0)
         self.trajectory: list = []   # (timestamp, SE3 pose_wc) host numpy
+        self.loop_links: list = []   # (kf slot, slot or ("arch", index))
         # previous frame's probe distances (CLOSEST keyframe selection)
         self._last_kf_dists: Optional[np.ndarray] = None
         # previous frame's world pose: constant-velocity tracking init
         self._pose_wc_prev: Optional[SE3] = None
+        # per-frame velocity reconstructed across a relocalisation: without
+        # it a recovery restarts at zero velocity and loses the next frame
+        self._reloc_vel: Optional[SE3] = None
         self._last_tracked_nframe = 0
+        self._last_loop_nframe = -10**9
         self.n_frames = 0
-        self.n_lost_frames = 0
+        self.n_lost_frames = 0        # frames dropped while lost
+        self.n_relocalizations = 0    # successful relocalisations
         self.n_evictions = 0
+        # which of the three loop paths fired
+        self.n_local_links = 0        # photometric local links
+        self.n_live_global_loops = 0  # prior + rep link (live target)
+        self.n_archived_loops = 0     # prior (archived target)
 
     def _dev(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
@@ -148,6 +196,9 @@ class DeepFactors:
         self.curr_kf = s1
         pose = self.mapper.state.pose
         self.pose_wc = _host_pose(se3m.index(pose, s1))
+        if self.loop_detector is not None:
+            for s in (s0, s1):
+                self._loop_add_keyframe(s)
         self.bootstrapped = True
         self.tracking_lost = False
         rel = se3m.mul(se3m.inverse(se3m.index(pose, s0)),
@@ -157,6 +208,7 @@ class DeepFactors:
         p2 = se3m.mul(SE3(self._dev(self.pose_wc.q), self._dev(self.pose_wc.t)),
                       se3m.inverse(vel))
         self._pose_wc_prev = _host_pose(p2)
+        self._reloc_vel = None
         self._last_tracked_nframe = self.n_frames
         toc("bootstrap")
 
@@ -174,13 +226,25 @@ class DeepFactors:
         toc("preprocess")
         self.n_frames += 1
         nframe = self.n_frames
+        just_relocalized = False
         if self.tracking_lost:
-            raise NotImplementedError(
-                "tracking was lost: relocalisation (DeepFactors._relocalize) "
-                "comes with the loop-closure slice of the port")
-        newkf = self._select_keyframe()
-        if newkf != self.curr_kf:
-            self._set_current_kf(newkf)
+            tic("relocalize")
+            ok = self._relocalize(img)
+            toc("relocalize")
+            if not ok:
+                self.n_lost_frames += 1
+                return          # stay lost; retry next frame
+            self.n_relocalizations += 1
+            self.tracking_lost = False
+            just_relocalized = True
+            # fall through: the frame step refines from the relocalised pose
+        # keyframe selection before tracking, from the previous frame's
+        # probe distances; not after a relocalisation, which just chose the
+        # keyframe by appearance
+        if not just_relocalized:
+            newkf = self._select_keyframe()
+            if newkf != self.curr_kf:
+                self._set_current_kf(newkf)
         tic("frame step")
         out = self._dispatch_frame(img)
         probe, new_pose_wc = self._parse_probe(out.probe.cpu().numpy())
@@ -196,32 +260,50 @@ class DeepFactors:
         L = self.cfg.mapper.pyramid_levels
         prev2 = self._pose_wc_prev if self._pose_wc_prev is not None \
             else self.pose_wc
+        ld = self.loop_detector
+        loop = (ld.voc, ld.db, ld.db_valid) if ld is not None else ()
         return self._frame_fn(
             img,
             tuple(st.levels[l].img for l in range(L)),
             tuple(st.levels[l].dpt for l in range(L)),
             st.pose.q, st.pose.t, fsd.pose.q, fsd.pose.t, self.curr_kf,
             self._dev(self.pose_wc.q), self._dev(self.pose_wc.t),
-            self._dev(prev2.q), self._dev(prev2.t))
+            self._dev(prev2.q), self._dev(prev2.t), *loop)
 
     def _decide(self, timestamp, nframe, img, out, probe, new_pose_wc,
                 kf: int) -> None:
         """Post-tracking decisions for one frame: lost check, CV chain
-        bookkeeping, keyframe/frame policies, mapping. ``kf`` is the
-        keyframe the frame was tracked against."""
+        bookkeeping, loop closure, keyframe/frame policies, mapping. ``kf``
+        is the keyframe the frame was tracked against."""
         self.tracker.inliers = probe["inliers"]
         self.tracker.error = probe["error"]
         self._last_kf_dists = probe["d_full"]
         dist = float(probe["d_full"][kf])
         self.tracking_lost = self._check_tracking_lost(probe, kf, dist)
         if self.tracking_lost:
-            self._pose_wc_prev = None
+            self._pose_wc_prev = None   # a stale velocity would mislead
+            self._reloc_vel = None
             self.n_lost_frames += 1
             return
-        self._pose_wc_prev = self.pose_wc
+        if self._reloc_vel is not None:
+            # re-seed the constant-velocity chain with the motion estimated
+            # across the relocalisation gap: prev2 = cur * vel^-1 makes the
+            # next prediction cur * vel instead of zero velocity
+            v = self._reloc_vel
+            self._pose_wc_prev = _host_pose(se3m.mul(
+                SE3(self._dev(new_pose_wc.q), self._dev(new_pose_wc.t)),
+                se3m.inverse(SE3(self._dev(v.q), self._dev(v.t)))))
+            self._reloc_vel = None
+        else:
+            self._pose_wc_prev = self.pose_wc
         self.pose_wc = new_pose_wc
         self._last_tracked_nframe = nframe
         self.trajectory.append((timestamp, new_pose_wc))
+
+        if self.loop_detector is not None:
+            tic("loop closure")
+            self._loop_closure(out.img_pyr, out.grad_pyr, probe, out.feat, kf)
+            toc("loop closure")
 
         if self._new_keyframe_required(probe, kf):
             tic("enqueue keyframe")
@@ -232,6 +314,8 @@ class DeepFactors:
             # construction (the cached distances predate it)
             self._last_kf_dists = np.array(self._last_kf_dists, copy=True)
             self._last_kf_dists[slot] = 0.0
+            if self.loop_detector is not None:
+                self._loop_add_keyframe(slot)
             # refine the fresh keyframe now: tracking the next frame against
             # unrefined predicted depth can diverge
             while self.mapper.has_work():
@@ -280,10 +364,13 @@ class DeepFactors:
         self.mapper.protected_slots = {slot} | set(self.mapper.kf_slots[-2:])
 
     def _on_keyframe_evicted(self, slot: int, kf_id: int):
-        """The mapper's ``evict_callback``: the place where the loop
-        detector moves an evicted keyframe's data to its archive, once loop
-        closure is ported. Counts the evictions."""
+        """The mapper's ``evict_callback``, before the slot is reused: the
+        loop detector moves the keyframe's loop data (BoW row, level-0
+        image and depth, final pose) into its archive, so that a revisit
+        can still close a loop against it. Counts the evictions."""
         self.n_evictions += 1
+        if self.loop_detector is not None:
+            self.loop_detector.archive_keyframe(slot, kf_id, self.mapper.state)
 
     def _set_tracker_keyframe(self, slot: int):
         L = self.cfg.mapper.pyramid_levels
@@ -369,3 +456,226 @@ class DeepFactors:
                 if float(probe["fr_trans"][i]) < self.cfg.frame_dist_threshold:
                     far_from_frames = False
         return far_from_kf and far_from_frames and not self.mapper.has_work()
+
+    # ------------------------------------------------------------------
+    # relocalisation (deepfactors.cpp:713-743)
+    # ------------------------------------------------------------------
+
+    def _relocalize(self, img: np.ndarray) -> bool:
+        """Relocalize (deepfactors.cpp:713-743): dense tracking of the frame
+        against EVERY keyframe slot at once (the loop detector's batched
+        verification, P = max_keyframes), one host read; the best live
+        keyframe by error among the acceptable ones wins, else the archive
+        is tried. On success sets pose_wc and curr_kf and returns True."""
+        L = self.cfg.mapper.pyramid_levels
+        img_pyr = tuple(ip.build_pyramid(fs.upload_frame(img, self.device), L))
+        grad_pyr = tuple(ip.build_gradient_pyramid(img_pyr))
+        st = self.mapper.state
+        ident = se3m.identity((self.cfg.mapper.max_keyframes,),
+                              device=self.device)
+        packed = self._reloc_fn(
+            tuple(st.levels[l].img for l in range(L)),
+            tuple(st.levels[l].dpt for l in range(L)),
+            img_pyr, grad_pyr, ident.q, ident.t)
+        pk = packed.cpu().numpy()
+        kq, kt = st.pose.q.cpu().numpy(), st.pose.t.cpu().numpy()
+        q, t, inl, err = pk[:, 0:4], pk[:, 4:7], pk[:, 7], pk[:, 8]
+        best, best_err = -1, np.inf
+        for s in self.mapper.kf_slots:
+            if err[s] < best_err and self._acceptable(err[s], inl[s], q[s],
+                                                       t[s]):
+                best, best_err = s, float(err[s])
+        if best < 0:
+            # no live keyframe matches: the camera often re-enters territory
+            # whose keyframes were marginalised out long ago
+            return self._relocalize_archived(img_pyr, grad_pyr)
+        # pose_wc = pose_wk * pose_ck^-1
+        wc = se3m.mul(SE3(self._dev(kq[best]), self._dev(kt[best])),
+                      se3m.inverse(SE3(self._dev(q[best]),
+                                       self._dev(t[best]))))
+        # the per-frame velocity across the lost gap, from the last tracked
+        # pose: a restart at zero velocity cannot cover the inter-frame
+        # motion at fast pacing and goes lost again at once
+        old = self.pose_wc
+        gap = max(1, self.n_frames - self._last_tracked_nframe)
+        self._reloc_vel = None
+        if gap <= 5:
+            rel = se3m.mul(se3m.inverse(SE3(self._dev(old.q),
+                                            self._dev(old.t))), wc)
+            w = se3m.so3_log(rel.q)
+            vw = se3m.so3_exp_quat(w / gap).cpu().numpy()
+            vt = rel.t.cpu().numpy() / gap
+            w = w.cpu().numpy()
+            # a garbage last-tracked pose must not inject a wild velocity
+            # (> ~0.5 rad or 0.5 m per frame)
+            if (np.isfinite(vt).all() and np.isfinite(vw).all()
+                    and np.linalg.norm(vt) < 0.5
+                    and np.linalg.norm(w) / gap < 0.5):
+                self._reloc_vel = SE3(vw, vt)
+        self.pose_wc = _host_pose(wc)
+        self._set_current_kf(best)
+        self._last_kf_dists = None
+        self._pose_wc_prev = None
+        self.tracker.error = best_err
+        return True
+
+    def _acceptable(self, e, i, qr, tr) -> bool:
+        """A recovered pose camera <- keyframe is accepted when its error
+        and valid share pass the tracking thresholds and it lands NEAR the
+        keyframe: a sliver-overlap minimum can score a tiny error metres
+        away."""
+        ang = 2.0 * np.arccos(np.clip(abs(float(qr[0])), 0.0, 1.0))
+        d_ck = 8.0 * float(np.linalg.norm(tr)) + 3.0 * ang
+        return bool(np.isfinite(e) and e <= self.cfg.tracking_error_threshold
+                    and i >= self.cfg.min_tracking_inliers
+                    and np.isfinite(tr).all()
+                    and d_ck <= self.cfg.tracking_dist_threshold)
+
+    def _arch_verify(self, img_pyr, grad_pyr) -> Tensor:
+        """Batched dense verification of a frame against the whole archive
+        (P = archive_cap), the pyramids rebuilt by blur-down. [A, 9]."""
+        ld = self.loop_detector
+        imgs, dpts = [ld.arch_img], [ld.arch_dpt]
+        for _ in range(1, self.cfg.mapper.pyramid_levels):
+            imgs.append(ip.gaussian_blur_down(imgs[-1]))
+            dpts.append(ip.gaussian_blur_down(dpts[-1]))
+        ident = se3m.identity((ld.A,), device=self.device)
+        return self._reloc_fn(imgs, dpts, img_pyr, grad_pyr, ident.q, ident.t)
+
+    def _relocalize_archived(self, img_pyr, grad_pyr) -> bool:
+        """Relocalize against the archive of evicted keyframes and
+        resurrect the match into the live pool: the archived keyframe is
+        rebuilt as a live keyframe at its archived pose, pinned by a pose
+        prior (its factors are gone; the prior carries its information),
+        and tracking resumes from it. The reference keeps every keyframe
+        live in ISAM2 and never needs this."""
+        ld = self.loop_detector
+        if ld is None or ld.A == 0:
+            return False
+        valid = ld.arch_ids >= 0
+        if not valid.any():
+            return False
+        pk = self._arch_verify(img_pyr, grad_pyr).cpu().numpy()
+        q, t, inl, err = pk[:, 0:4], pk[:, 4:7], pk[:, 7], pk[:, 8]
+        best, best_err = -1, np.inf
+        for a in range(ld.A):
+            if (valid[a] and err[a] < best_err
+                    and self._acceptable(err[a], inl[a], q[a], t[a])):
+                best, best_err = a, float(err[a])
+        if best < 0:
+            return False
+        # read before an eviction below can overwrite the archive entry
+        aq = ld.arch_q[best].cpu().numpy()
+        at = ld.arch_t[best].cpu().numpy()
+        aimg = ld.arch_img[best].cpu().numpy()
+        wk = SE3(aq, at)
+        wc = se3m.mul(SE3(self._dev(aq), self._dev(at)),
+                      se3m.inverse(SE3(self._dev(q[best]),
+                                       self._dev(t[best]))))
+        m = self.mapper
+        if len(m.kf_slots) >= self.cfg.mapper.max_keyframes:
+            m.marginalize_keyframe(m._select_victim())
+        slot = m.add_keyframe_to_map(aimg, wk)
+        m.add_loop_prior(slot, wk, sigma=self.cfg.loop_sigma)
+        self._loop_add_keyframe(slot)
+        # the live row supersedes the archive row
+        ld.arch_ids[best] = -1
+        ld.db_valid[ld.K + best] = False
+        self.pose_wc = _host_pose(wc)
+        self._set_current_kf(slot)
+        self._last_kf_dists = None
+        self._pose_wc_prev = None
+        self._reloc_vel = None
+        self.tracker.error = best_err
+        return True
+
+    # ------------------------------------------------------------------
+    # loop closure (deepfactors.cpp:246-280)
+    # ------------------------------------------------------------------
+
+    def _loop_add_keyframe(self, slot: int):
+        """The keyframe's BoW row: from its reprojection keypoints when the
+        map keeps them, else from a detection at level 0."""
+        st = self.mapper.state
+        if st.kp_desc.shape[1] > 0:
+            self.loop_detector.add_keyframe(slot, st.kp_desc[slot],
+                                            st.kp_valid[slot])
+        else:
+            f = det.detect(st.levels[0].img[slot],
+                           det.DetectorConfig(max_keypoints=128))
+            self.loop_detector.add_keyframe(slot, f.descriptor, f.valid)
+
+    def _loop_closure(self, img_pyr, grad_pyr, probe: dict, cur_feat,
+                      kf: int):
+        """Local loop: a photometric link to the nearest keyframe outside
+        the active window (deepfactors.cpp:248-261), from the probe's
+        distances. Global loop (deepfactors.cpp:263-280), after the
+        cooldown: BoW candidates from the probe's similarities, verified
+        densely in one batch; a live target gets a pose prior and a
+        reprojection link, an archived one a pose prior."""
+        st = self.mapper.state
+        win = set(self.mapper.kf_slots[-self.cfg.loop_active_window:])
+        local, best_d = -1, self.cfg.loop_max_dist
+        for s in self.mapper.kf_slots:
+            if s in win or s == kf:
+                continue
+            if float(probe["d_full"][s]) < best_d:
+                local, best_d = s, float(probe["d_full"][s])
+        if local >= 0 and not self._link_exists(kf, local):
+            self.mapper.enqueue_link(kf, local, photo=True)
+            self.loop_links.append((kf, local))
+            self.n_local_links += 1
+        if (self.n_frames - self._last_loop_nframe
+                <= self.cfg.loop_cooldown):
+            return
+        res = self.loop_detector.detect_loop(
+            cur_feat.descriptor, cur_feat.valid, img_pyr, grad_pyr,
+            self.pose_wc, st, self.mapper.kf_slots,
+            sims_np=probe["sims"], next_kid=self.mapper._next_kid)
+        if res.detected and res.archived_idx >= 0:
+            arch = SE3(self._dev(res.arch_pose_w.q),
+                       self._dev(res.arch_pose_w.t))
+            if self._apply_loop_correction(res, kf, arch):
+                self.loop_links.append((kf, ("arch", res.archived_idx)))
+                self.n_archived_loops += 1
+                self._last_loop_nframe = self.n_frames
+        elif res.detected and res.slot != kf \
+                and not self._link_exists(kf, res.slot):
+            # live target: seed the correction from the verified relative
+            # pose (a bare rep link cannot pull a large drift through the
+            # fine level's redescending loss), then link for refinement
+            tgt = se3m.index(self.mapper.state.pose, res.slot)
+            if self._apply_loop_correction(res, kf, tgt):
+                self.mapper.enqueue_link(kf, res.slot, photo=False, rep=True)
+                self.loop_links.append((kf, res.slot))
+                self.n_live_global_loops += 1
+                self._last_loop_nframe = self.n_frames
+
+    def _apply_loop_correction(self, res, kf: int, target_pose_w) -> bool:
+        """Close a loop against a trusted pose (an archived keyframe's
+        final pose, or a live target's current estimate): the verified
+        relative pose gives a corrected world pose of the current frame;
+        the world-frame correction is carried to the current keyframe and
+        applied as a pose prior, and the keyframe's newest back-connection
+        gets fresh photometric works, so that the window is re-optimised.
+        False (nothing applied) when the correction is not finite."""
+        # wc_corr = pose_target_w ∘ rel⁻¹
+        wc_corr = se3m.mul(target_pose_w, se3m.inverse(res.pose_cand_cur))
+        wc_est = SE3(self._dev(self.pose_wc.q), self._dev(self.pose_wc.t))
+        delta = se3m.mul(wc_corr, se3m.inverse(wc_est))
+        target = _host_pose(se3m.mul(delta, se3m.index(self.mapper.state.pose,
+                                                      kf)))
+        if not (np.all(np.isfinite(target.q))
+                and np.all(np.isfinite(target.t))):
+            return False
+        self.mapper.add_loop_prior(kf, target, sigma=self.cfg.loop_sigma)
+        others = [s for s in self.mapper.kf_slots if s != kf]
+        if others:
+            self.mapper._add_photo_pair(kf, others[-1], second_removes=True)
+        return True
+
+    def _link_exists(self, a: int, b: int) -> bool:
+        for (_, (x, y)) in self.mapper.links_host:
+            if (x == a and y == b) or (x == b and y == a):
+                return True
+        return False

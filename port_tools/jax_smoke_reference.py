@@ -7,11 +7,14 @@ unless given), the first ``--frames`` poses of
 ``orbit_trajectory(300, sweep=3.2*pi)`` rendered at 192x256, the
 ``room256_32v4`` decoder, bootstrap on frames 0 and 2, sequential facade
 with loop closure off and reprojection factors off unless
-``--use-reprojection`` is given (the mapper's default configuration). The
-accuracy numbers it
-prints (tracked fraction, rigid ATE, keyframe and eviction counts, the
-first lost frame) are the parity target and the source of the ATE bounds
-chip_smoke.py asserts.
+``--use-reprojection`` is given (the mapper's default configuration), and
+loop closure off unless ``--loop-closure`` is given (with the shipped
+vocabulary ``default_vocabulary()``; ``tools/bench_e2e.py``'s flagship
+configuration adds ``--loop-active-window 8 --loop-max-dist 0.35``). The
+accuracy numbers it prints (tracked fraction, rigid ATE, keyframe and
+eviction counts, the first lost frame, the loop counters, the
+relocalisations and every accepted loop with its frame) are the parity
+target and the source of the ATE bounds chip_smoke.py asserts.
 
 Run on the CPU, from the repository root:
   the 60-frame run in a window of 32 (no eviction):
@@ -21,7 +24,13 @@ Run on the CPU, from the repository root:
     JAX_PLATFORMS=cpu python port_tools/jax_smoke_reference.py \
         --frames 180 --max-keyframes 16 --max-factors 64 --scene-seed 5
   either with the reprojection factors on: add --use-reprojection.
-Prints one JSON line. Its wall-clock numbers are CPU numbers and say
+  the flagship configuration (chip_smoke.py's loop-closure phase):
+    JAX_PLATFORMS=cpu python port_tools/jax_smoke_reference.py \
+        --use-reprojection --loop-closure --loop-active-window 8 \
+        --loop-max-dist 0.35 --frames 186 --scene-seed 42
+``--trace FILE`` writes the per-frame decision trace of
+``port_tools/decision_trace.py`` (compare it with the port's from
+``port_tools/facade_run.py --trace``). Prints one JSON line. Its wall-clock numbers are CPU numbers and say
 nothing about any accelerator.
 """
 import argparse
@@ -52,11 +61,17 @@ def main():
     # decision falling a frame earlier or later
     ap.add_argument("--frame-dist-threshold", type=float, default=0.12)
     ap.add_argument("--use-reprojection", action="store_true")
+    ap.add_argument("--loop-closure", action="store_true")
+    ap.add_argument("--loop-active-window", type=int, default=10)
+    ap.add_argument("--loop-max-dist", type=float, default=0.5)
+    ap.add_argument("--trace", default=None,
+                    help="write the per-frame decision trace here")
     args = ap.parse_args()
     n_frames = args.frames
 
     from deepfactors_tpu.geometry.camera import PinholeCamera
     from deepfactors_tpu.io import synth
+    from deepfactors_tpu.loop.vocabulary import default_vocabulary
     from deepfactors_tpu.mapping.mapper import MapperConfig
     from deepfactors_tpu.models.decoder import (Decoder, NetworkConfig,
                                                 load_params)
@@ -89,15 +104,52 @@ def main():
             connection_mode="LASTN", max_back_connections=2,
             use_reprojection=args.use_reprojection),
         dist_threshold=2.0, tracking_dist_threshold=5.0,
-        frame_dist_threshold=args.frame_dist_threshold, loop_closure=False)
-    df = DeepFactors(cfg, cam, decoder=decoder)
+        frame_dist_threshold=args.frame_dist_threshold,
+        loop_closure=args.loop_closure,
+        loop_active_window=args.loop_active_window,
+        loop_max_dist=args.loop_max_dist)
+    df = DeepFactors(cfg, cam, decoder=decoder,
+                     vocabulary=default_vocabulary() if args.loop_closure
+                     else None)
+    # every dense verification of a global-loop candidate set: the frame,
+    # the candidates' similarities, verified inlier shares and translations
+    verifications = []
+    if args.loop_closure:
+        ld = df.loop_detector
+        verify = ld._verify
+        frame_no = [0]
+
+        def logged_verify(*a):
+            out = verify(*a)
+            pk = np.asarray(out)
+            verifications.append(dict(
+                frame=frame_no[0],
+                inliers=[round(float(x), 4) for x in pk[:, 7]],
+                t_norm=[round(float(x), 4)
+                        for x in np.linalg.norm(pk[:, 4:7], axis=-1)]))
+            return out
+
+        ld._verify = logged_verify
+    loops = []
     t0 = time.perf_counter()
     df.bootstrap_two_frames(frames[0], frames[2], frame_gap=2)
+    close_trace = None
+    if args.trace:
+        import decision_trace
+        close_trace = decision_trace.attach(df, args.trace)
     df.trajectory = [(0.0, df.pose_wc)]
     first_lost = None
     ate_at = {}
     for i in range(3, n_frames):
+        if args.loop_closure:
+            frame_no[0] = i
+        n_loops = len(df.loop_links)
+        n_reloc = df.n_relocalizations
         df.process_frame(float(i), frames[i])
+        for link in df.loop_links[n_loops:]:
+            loops.append([i, str(link)])
+        if df.n_relocalizations > n_reloc:
+            loops.append([i, "relocalisation"])
         if first_lost is None and df.n_lost_frames > 0:
             first_lost = i
         if first_lost is None and (i + 1) % 20 == 0:
@@ -106,6 +158,8 @@ def main():
                 est, [(ts, poses[int(ts)]) for ts, _ in est]),
                 len(df.mapper.archived)]
     wall = time.perf_counter() - t0
+    if close_trace is not None:
+        close_trace()
 
     est = df.trajectory
     gt = [(ts, poses[int(ts)]) for ts, _ in est]
@@ -120,6 +174,14 @@ def main():
         "ate_and_evictions_at": ate_at,
         "n_frames_processed": df.n_frames,
         "use_reprojection": args.use_reprojection,
+        "loop_closure": args.loop_closure,
+        "n_local_links": df.n_local_links,
+        "n_live_global_loops": df.n_live_global_loops,
+        "n_archived_loops": df.n_archived_loops,
+        "n_relocalizations": df.n_relocalizations,
+        # [frame, loop link or "relocalisation"] in order
+        "loop_events": loops,
+        "verifications": verifications,
         "n_rep_factors_live": int(df.mapper.rep_pool.active.sum())
         if args.use_reprojection else 0,
         "cpu_wall_s": wall,

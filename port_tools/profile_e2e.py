@@ -7,6 +7,9 @@ frames in a window of 32 keyframes with reprojection factors on, or with
 with the map dump and warp render after them; with
 ``--phase large_map`` the 10 BA iterations over 32 keyframes and 236
 factors, with ``--phase odometry`` the 30 lockstep frames over 8 rooms,
+with ``--phase loop`` the 186 frames of the flagship configuration with
+loop closure on, with ``--phase reloc`` the relocalisation run (two noise
+frames, a recovery against the live pool and one against the archive),
 with ``--phase rep_ops`` one keyframe event's reprojection work at the
 main path's shapes: detect_pyramid on one 192x256 frame, match + RANSAC
 both ways of one pair (128 hypotheses), and the rep system of 32 factors
@@ -108,7 +111,8 @@ def main():
     ap.add_argument("--json", default=None)
     ap.add_argument("--long", action="store_true")
     ap.add_argument("--phase", default=None,
-                    choices=("large_map", "odometry", "rep_ops"))
+                    choices=("large_map", "odometry", "rep_ops", "loop",
+                             "reloc"))
     args = ap.parse_args()
 
     import torch
@@ -137,7 +141,8 @@ def main():
     elif name == "rep_ops":
         phase = rep_ops_problem(cs)
     else:
-        run = cs.phase_long_run if name == "long" else cs.phase_e2e
+        run = {"long": cs.phase_long_run, "loop": cs.phase_loop,
+               "reloc": cs.phase_reloc}.get(name, cs.phase_e2e)
         phase = lambda: run("cuda", dec)
     phase()                                         # warm-up run
     torch.cuda.synchronize()

@@ -72,7 +72,7 @@ def _cfg(SC, MC, max_keyframes=8, use_reprojection=False):
               loop_closure=False)
 
 
-def _run(df, frames, poses, tum, n=N):
+def _run(df, frames, poses, tum, n=N, schedule=None):
     df.bootstrap_two_frames(frames[0], frames[2], frame_gap=2)
     df.trajectory = [(0.0, df.pose_wc)]
     kf_events, fr_events, evicted = [], [], []
@@ -83,7 +83,7 @@ def _run(df, frames, poses, tum, n=N):
         on_evict(slot, kid)
 
     df.mapper.evict_callback = record
-    for i in range(3, n):
+    for i in (range(3, n) if schedule is None else schedule):
         n_kf = df.mapper._next_kid
         n_fr = int(np.array(df.mapper.frames.next_id))
         df.process_frame(float(i), frames[i])
@@ -94,6 +94,9 @@ def _run(df, frames, poses, tum, n=N):
                 archived=[a["id"] for a in df.mapper.archived],
                 n_live=len(df.mapper.kf_slots), lost=df.n_lost_frames,
                 n_evictions=getattr(df, "n_evictions", None),
+                loops=(df.n_local_links, df.n_live_global_loops,
+                       df.n_archived_loops, df.n_relocalizations,
+                       [tuple(map(str, link)) for link in df.loop_links]),
                 rep={(int(p.src[i]), int(p.dst[i])): int(p.mvalid[i].sum())
                      for p in [df.mapper.rep_pool]
                      for i in np.nonzero(p.active)[0]}
