@@ -68,6 +68,21 @@ Phases, in order (any failure exits non-zero before the final line):
      the matched archived keyframe resurrected; each relocalised pose near
      the truth.
      They run between phases 4 and 5.
+  8. the pipelined facade on bench.py's end-to-end row (after phase 7b):
+     tools/bench_e2e.py's build_system(max_keyframes=10, ...) at
+     pipeline_depth=1 on the 300 frames of orbit_trajectory(300) (its
+     default sweep) of random_room(7), after prewarm(): 10 warm frames,
+     flush(), the timed frames (bench.py's e2e_fps), flush(). Every frame
+     tracked, the JAX facade's frame accounting, nothing left in flight,
+     the ATE under a bound set from the JAX facade's CPU runs and the
+     card's, loop candidates verified, kernels 1-3 launched; pinned
+     uploads and pinned probe reads bit-identical to the device's values.
+     Prints the tracking-only host latencies beside phase 7's sequential
+     ones. Then the sync audit, in a pass of its own over the row's first
+     60 frames: every dispatch of a timed frame under
+     torch.cuda.set_sync_debug_mode("error"); and the row of random_room(42),
+     where the card closes archived loops: every frame tracked, at least
+     one archived loop.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -80,6 +95,8 @@ import os
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 
@@ -263,6 +280,57 @@ RELOC_WINDOW = 8
 RELOC_FRAMES = 60
 RELOC_LIVE_AT = 30
 RELOC_POSE_BOUND_M = 0.20
+
+# Phase 8, the pipelined facade on bench.py's end-to-end row
+# (``bench_e2e(..., pipeline_depth=1)``): tools/bench_e2e.py's
+# build_system(max_keyframes=10, dist_threshold=2.0, loop_closure=True,
+# use_reprojection=True, pipeline_depth=1) on ``orbit_trajectory(300)``
+# (its default sweep, 2.6*pi) of random_room(7), prewarm(), bootstrap on
+# frames 0 and 2, PIPE_WARM warm frames, flush(), the timed frames and
+# flush() again. The JAX facade on a CPU
+# (port_tools/jax_smoke_reference.py --bench-sequence --pipeline-depth 1
+# --scene-seed 7): tracked 1.0, 297 frames processed, a trajectory of 298
+# poses, 60 keyframes built, 50 evictions, 10 live, loop counters (local,
+# live, archived) (0, 0, 3), rigid ATE 0.5130 m. Its loops hang on RANSAC's
+# draws: with its key chain seeded 2 instead of 42 (--ransac-seed 2) it
+# tracks every frame, closes no loop and reads 0.7121 m; seeded 1, 3 and 4
+# it loses tracking at frames 195, 231 and 222. So the phase holds the card
+# to the frame accounting, the tracked fraction, the ATE bound and a dense
+# verification of loop candidates, and prints the loop counters beside
+# JAX's. The card reads tracked 1.0, 60 keyframes, 50 evictions, no loop and
+# 0.7219-0.7223 m over four runs in two calls; the bound sits above every
+# reading of both packages.
+# Then the same row in random_room(PIPE_LOOP_SCENE_SEED), for the archived-
+# loop path on the card (phase 7 closes a live loop; no other phase an
+# archived one): the card tracks every frame and closes 11 archived loops
+# from frame 228 on, 0.1353-0.1354 m, in two runs of one call. It is a
+# check of the path, not of parity: the JAX facade loses this row at frame
+# 208 (its key chain seeded 42) or 78 (seeded 2), so the pass asserts every
+# frame tracked and at least one archived loop, and no ATE bound.
+PIPE_SCENE_SEED = 7
+PIPE_FRAMES = 300
+PIPE_WARM = 10
+PIPE_DEPTH = 1
+PIPE_MAX_KEYFRAMES = 10
+PIPE_JAX = dict(n_frames=297, trajectory=298, loops=(0, 0, 3), ate=0.5130,
+                keyframes_built=60, evictions=50)
+PIPE_ATE_BOUND_M = 0.80
+PIPE_LOOP_SCENE_SEED = 42
+# the sync audit, a pass of its own after the timed one (so that e2e_fps
+# and the frame latencies are read without it): the same row fed up to
+# frame PIPE_AUDIT_STOP - 1, every dispatch of its timed frames but a
+# relocalised one under torch.cuda.set_sync_debug_mode("error"); at least
+# PIPE_AUDIT_MIN dispatches, and as many tracking-only frames
+PIPE_AUDIT_STOP = 60
+PIPE_AUDIT_MIN = 20
+# warm frames whose pinned probe read is held to out.probe.cpu() bit for
+# bit: each is dispatched behind a spin kernel of PIPE_SPIN_CYCLES (~0.1 s),
+# so its copy is queued behind the spin when a later call retires it
+PIPE_PROBE_FRAMES = (5, 6, 7)
+PIPE_SPIN_CYCLES = 200_000_000
+# readings that later phases print beside their own (phase 7's sequential
+# frame latencies beside phase 8's pipelined ones)
+READINGS: dict = {}
 
 
 def large_map_links():
@@ -1601,7 +1669,8 @@ def reset_launch_counts():
 
 def stat(v):
     return (f"n={len(v)} mean {np.mean(v):.1f} median {np.median(v):.1f} "
-            f"max {np.max(v):.1f} ms" if v else "n=0")
+            f"p90 {np.percentile(v, 90):.1f} max {np.max(v):.1f} ms"
+            if v else "n=0")
 
 
 def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
@@ -1992,6 +2061,7 @@ def phase_loop(dev, decoder):
                    n_frames=LOOP_FRAMES, max_keyframes=32, max_factors=128,
                    use_reprojection=True, loop_closure=True, time_parts=False)
     launches = launch_counts()
+    READINGS["loop_ms_by"] = r["ms_by"]
     df = r["df"]
     assert df.n_lost_frames == 0 and r["tracked"] == 1.0, "frames lost"
     counts = (df.n_local_links, df.n_live_global_loops, df.n_archived_loops)
@@ -2061,6 +2131,301 @@ def phase_reloc(dev, decoder):
         f"rigid alignment {errs} m (bound {RELOC_POSE_BOUND_M}; median over "
         f"the run {float(np.nanmedian(err)):.4f} m); {df.n_evictions} "
         f"evictions")
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 8: the pipelined facade on the bench's row
+# ----------------------------------------------------------------------------
+
+def bench_system(cam, decoder, dev, max_keyframes=PIPE_MAX_KEYFRAMES,
+                 dist_threshold=2.0, pipeline_depth=PIPE_DEPTH):
+    """tools/bench_e2e.py's ``build_system`` in the port: reprojection
+    factors and loop closure on, the shipped vocabulary."""
+    from deepfactors_tpu_torch.loop.vocabulary import default_vocabulary
+    from deepfactors_tpu_torch.mapping.mapper import MapperConfig
+    from deepfactors_tpu_torch.system import DeepFactors, SystemConfig
+
+    cfg = SystemConfig(
+        mapper=MapperConfig(
+            max_keyframes=max_keyframes, max_frames=2,
+            max_factors=4 * max_keyframes, code_size=32, height=H, width=W,
+            pyramid_levels=3, pho_iters=(4, 8, 15), connection_mode="LASTN",
+            max_back_connections=2, use_reprojection=True),
+        dist_threshold=dist_threshold,
+        tracking_dist_threshold=2.5 * dist_threshold,
+        frame_dist_threshold=0.12, loop_closure=True, loop_active_window=8,
+        loop_max_dist=0.35, pipeline_depth=pipeline_depth)
+    return DeepFactors(cfg, cam, decoder=decoder,
+                       vocabulary=default_vocabulary(device=dev), device=dev)
+
+
+def upload_check(dev, frames):
+    """Frames uploaded through ``frame_step.upload_frame`` (pinned staging,
+    non-blocking copies) behind a spin kernel, each host array dropped at
+    once: every device copy must equal its frame bit for bit, so the
+    caching host allocator kept each pinned block until its copy ran.
+    float32 and uint8 (widened on the device) uploads."""
+    import torch
+    from deepfactors_tpu_torch import frame_step as fs
+
+    u8 = [(np.clip(f, 0, 1) * 255 + 0.5).astype(np.uint8) for f in frames]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(PIPE_SPIN_CYCLES)
+    outs = [fs.upload_frame(np.array(f), dev) for f in frames]
+    outs += [fs.upload_frame(np.array(f), dev) for f in u8]
+    torch.cuda.synchronize()
+    want = list(frames) + [f.astype(np.float32) * np.float32(1.0 / 255.0)
+                           for f in u8]
+    for o, w in zip(outs, want):
+        assert np.array_equal(o.cpu().numpy(), w), "pinned upload corrupted"
+    return len(outs)
+
+
+def run_pipelined(dev, decoder, tag, scene_seed=PIPE_SCENE_SEED,
+                  n_frames=PIPE_FRAMES, depth=PIPE_DEPTH, audit=None,
+                  ransac_draw=None, stop=None, trace=None, checks=True):
+    """bench.py's end-to-end row through the port: the sequence of
+    ``bench._render_seq`` (``orbit_trajectory(n_frames)``), ``bench_system``
+    at ``pipeline_depth=depth``, ``prewarm()``, then bench.py's
+    ``_run_e2e``: bootstrap on frames 0 and 2, PIPE_WARM frames,
+    ``flush()``, the timed frames, ``flush()``, with a synchronise at both
+    ends of the timed part. Sets the launch counts to 0 after the prewarm.
+    With ``audit`` ("error" or "warn"; None: off) every dispatch of a timed
+    frame but a relocalised one runs under
+    ``torch.cuda.set_sync_debug_mode(audit)``: "error" raises at the first
+    synchronising op, "warn" counts each synchronising call site (its
+    Python stack) in the readings' ``sync_sites`` (the audit's own cost then
+    falls inside ``e2e_fps`` and the frame latencies). The warm frames of
+    PIPE_PROBE_FRAMES are dispatched behind a spin kernel, and the retire
+    of each holds its pinned probe read to ``out.probe.cpu()`` bit for bit.
+    ``checks=False`` leaves out the upload check and the probe check (their
+    spin kernels would count as device work in a profile).
+    ``stop`` cuts the run after frame stop - 1 (a rehearsal on the CPU; the
+    sequence's pacing stays that of ``n_frames``). ``trace``: a file for
+    port_tools/decision_trace.py's per-frame trace. Returns the facade and
+    the run's readings."""
+    import torch
+    from deepfactors_tpu_torch.geometry.camera import PinholeCamera
+    from deepfactors_tpu_torch.io import synth
+    from deepfactors_tpu_torch.utils import tum_io
+
+    cuda = dev != "cpu"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    warm = PIPE_WARM
+    cam = PinholeCamera.create(fx=220.0, fy=220.0, u0=W / 2, v0=H / 2,
+                               width=W, height=H)
+    scene = synth.random_room(scene_seed, n_boxes=3)
+    poses = synth.orbit_trajectory(n_frames)
+    frames = synth.render_sequence(scene, cam, poses, H, W, device=dev)
+    df = bench_system(cam, decoder, dev, pipeline_depth=depth)
+    if ransac_draw is not None:
+        df.mapper.ransac_draw = ransac_draw
+    t = time.perf_counter()
+    df.prewarm()
+    prewarm_s = time.perf_counter() - t
+    n_uploads = upload_check(dev, frames[:4]) if cuda and checks else 0
+
+    # the probe check: the retire's parsed probe against the device probe
+    probe_pairs = []
+    parse, retire = df._parse_probe, df._retire_one
+
+    def checked_retire():
+        e, seen = df._pending[0], []
+        if int(e.timestamp) not in PIPE_PROBE_FRAMES:
+            return retire()
+
+        def seen_parse(pv):
+            seen.append(np.array(pv, copy=True))
+            return parse(pv)
+        df._parse_probe = seen_parse
+        try:
+            retire()
+        finally:
+            df._parse_probe = parse
+        if seen:
+            probe_pairs.append((seen[0], e.out.probe))
+
+    # the sync audit around each dispatch
+    dispatch = df._dispatch_frame
+    audited = [0]
+    sync_sites: dict = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        site = "".join(traceback.format_stack(limit=10)[:-1])
+        sync_sites[site] = sync_sites.get(site, 0) + 1
+
+    def audited_dispatch(img, just_relocalized=False):
+        if just_relocalized:
+            return dispatch(img, just_relocalized)
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(audit)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = record
+                out = dispatch(img, just_relocalized)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        audited[0] += 1
+        return out
+
+    # every dense verification of a global-loop candidate set: the frame
+    # fed when it ran and its packed result (read after the run)
+    verifies, frame_no = [], [0]
+    if df.loop_detector is not None:
+        verify = df.loop_detector._verify
+
+        def logged_verify(*a):
+            out = verify(*a)
+            verifies.append((frame_no[0], out))
+            return out
+        df.loop_detector._verify = logged_verify
+    kf_at = []       # frames fed at whose call a keyframe was built
+
+    reset_launch_counts()
+    sync()
+    df.bootstrap_two_frames(frames[0], frames[2], frame_gap=2)
+    close_trace = None
+    if trace:
+        sys.path.insert(0, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "port_tools"))
+        import decision_trace
+        close_trace = decision_trace.attach(df, trace)
+    df.trajectory = [(0.0, df.pose_wc)]
+    probing = cuda and checks and depth > 0
+    if probing:
+        df._retire_one = checked_retire
+    for i in range(3, 3 + warm):
+        if probing and i in PIPE_PROBE_FRAMES:
+            torch.cuda._sleep(PIPE_SPIN_CYCLES)
+        frame_no[0], n_kf = i, df.mapper._next_kid
+        df.process_frame(float(i), frames[i])
+        if df.mapper._next_kid > n_kf:
+            kf_at.append(i)
+    df.flush()
+    df._retire_one = retire
+    for pv, dev_probe in probe_pairs:
+        ref = dev_probe.cpu().numpy()
+        assert np.array_equal(pv.view(np.uint32), ref.view(np.uint32)), \
+            "a pinned probe read differs from out.probe.cpu()"
+    if cuda and audit:
+        df._dispatch_frame = audited_dispatch
+    ms_by = {"tracking-only frames": [], "one-way-frame events": [],
+             "keyframe events": []}
+    n_frames_enq = int(df.mapper.frames.next_id)
+    loop_at, ms_at = [], []
+    stop = n_frames if stop is None else stop
+    sync()
+    t0 = time.perf_counter()
+    for i in range(3 + warm, stop):
+        n_kf, n_links = df.mapper._next_kid, len(df.loop_links)
+        frame_no[0] = i
+        t1 = time.perf_counter()
+        df.process_frame(float(i), frames[i])
+        dt = (time.perf_counter() - t1) * 1e3
+        n_fr = int(df.mapper.frames.next_id)
+        kind = ("keyframe events" if df.mapper._next_kid > n_kf else
+                "one-way-frame events" if n_fr > n_frames_enq else
+                "tracking-only frames")
+        n_frames_enq = n_fr
+        ms_by[kind].append(dt)
+        ms_at.append((i, kind, dt))
+        if kind == "keyframe events":
+            kf_at.append(i)
+        loop_at += [(i, str(link)) for link in df.loop_links[n_links:]]
+    df.flush()
+    sync()
+    timed_s = time.perf_counter() - t0
+    df._dispatch_frame = dispatch
+    if close_trace is not None:
+        close_trace()
+    verified = []
+    for f, out in verifies:
+        pk = out.cpu().numpy()
+        verified.append((f, [round(float(x), 4) for x in pk[:, 7]],
+                         [round(float(x), 4) for x in
+                          np.linalg.norm(pk[:, 4:7], axis=-1)]))
+    est = df.trajectory
+    for _, p in est:
+        assert np.isfinite(p.q).all() and np.isfinite(p.t).all(), \
+            "non-finite pose"
+    gt = [(ts, poses[int(ts)]) for ts, _ in est]
+    ate = tum_io.ate_rmse(est, gt)
+    tracked = 1.0 - df.n_lost_frames / max(df.n_frames, 1)
+    e2e_fps = (stop - 3 - warm) / timed_s
+    loops = (df.n_local_links, df.n_live_global_loops, df.n_archived_loops)
+    log(f"{tag}: prewarm {prewarm_s:.2f} s; {df.n_frames} frames after the "
+        f"bootstrap, e2e_fps {e2e_fps:.2f} (bench.py's definition: frames "
+        f"{3 + warm}-{stop - 1}, {timed_s:.2f} s between two flushes "
+        f"and synchronises); {n_uploads} pinned uploads checked, "
+        f"{len(probe_pairs)} pinned probe reads bit-identical, "
+        f"{audited[0]} dispatches under the sync audit")
+    for kind, v in ms_by.items():
+        log(f"{tag} {kind} (host ms a call, no synchronise): {stat(v)}")
+    log(f"{tag} keyframes built {df.mapper._next_kid}, live "
+        f"{len(df.mapper.kf_slots)}, evicted {df.n_evictions}, tracked "
+        f"fraction {tracked:.4f}, lost {df.n_lost_frames}, trajectory "
+        f"{len(est)}, pending {len(df._pending)}, loops {loops} at "
+        f"{loop_at}, relocalisations {df.n_relocalizations}, rigid ATE "
+        f"{ate:.4f} m; kernel launches {launch_counts()}")
+    log(f"{tag} keyframes built at frames fed {kf_at}")
+    log(f"{tag} dense verifications (frame fed, inlier shares, translations "
+        f"m): {verified}")
+    for site, n in sync_sites.items():
+        log(f"{tag} synchronising call site, {n} times:\n{site}")
+    return dict(df=df, ate=ate, tracked=tracked, e2e_fps=e2e_fps,
+                ms_by=ms_by, audited=audited[0], probe_checks=len(probe_pairs),
+                uploads=n_uploads, loops=loops, loop_at=loop_at,
+                prewarm_s=prewarm_s, sync_sites=sync_sites, poses=poses,
+                ms_at=ms_at,
+                kf_at=kf_at, verified=verified)
+
+
+def phase_pipelined(dev, decoder):
+    """Phase 8: the pipelined facade (pipeline_depth=1) on bench.py's
+    end-to-end row, held to the JAX facade's run of it; then the sync audit
+    in a shorter pass of its own, and the row of another room for an
+    archived loop."""
+    r = run_pipelined(dev, decoder, "pipelined")
+    launches = launch_counts()
+    df = r["df"]
+    assert df.n_lost_frames == 0 and r["tracked"] == 1.0, "frames lost"
+    assert len(df._pending) == 0, "flush left frames in flight"
+    assert df.n_frames == PIPE_JAX["n_frames"], df.n_frames
+    assert len(df.trajectory) == PIPE_JAX["trajectory"], len(df.trajectory)
+    assert r["ate"] < PIPE_ATE_BOUND_M, f"ATE {r['ate']} >= {PIPE_ATE_BOUND_M}"
+    # global-loop candidates were retrieved and verified densely (JAX's
+    # runs verify from frame ~140 on, under every key seed)
+    assert r["verified"], "no dense verification of a loop candidate"
+    assert r["probe_checks"] == len(PIPE_PROBE_FRAMES), r["probe_checks"]
+    path = ("se3_gram_batch", "sfm_gram_batch", "sfm_error_batch")
+    assert all(launches[k] > 0 for k in path), f"kernel not launched: {launches}"
+    a = run_pipelined(dev, decoder, "pipelined, sync audit", audit="error",
+                      stop=PIPE_AUDIT_STOP, checks=False)
+    n_track = len(a["ms_by"]["tracking-only frames"])
+    assert a["audited"] >= PIPE_AUDIT_MIN and n_track >= PIPE_AUDIT_MIN, \
+        (a["audited"], n_track)
+    assert a["df"].n_lost_frames == 0, "frames lost in the audited pass"
+    track = lambda x: [dt for i, k, dt in x["ms_at"]
+                       if k == "tracking-only frames" and i < PIPE_AUDIT_STOP]
+    log(f"tracking-only frames 13-{PIPE_AUDIT_STOP - 1}, host ms: without "
+        f"the audit {stat(track(r))}; with it {stat(track(a))}")
+    g = run_pipelined(dev, decoder, f"pipelined, room {PIPE_LOOP_SCENE_SEED}",
+                      scene_seed=PIPE_LOOP_SCENE_SEED, checks=False)
+    assert g["tracked"] == 1.0, f"room {PIPE_LOOP_SCENE_SEED}: frames lost"
+    assert g["loops"][2] >= 1, f"no archived loop: {g['loops']}"
+    log(f"pipelined: loop counters {r['loops']} (the JAX facade's run "
+        f"{PIPE_JAX['loops']}), keyframes built {df.mapper._next_kid} "
+        f"({PIPE_JAX['keyframes_built']}), evictions {df.n_evictions} "
+        f"({PIPE_JAX['evictions']}), rigid ATE {r['ate']:.4f} m "
+        f"({PIPE_JAX['ate']}; bound {PIPE_ATE_BOUND_M})")
+    seq = READINGS.get("loop_ms_by")
+    if seq is not None:
+        log("tracking-only frames, host ms: pipelined (phase 8, no "
+            "synchronise) " + stat(r["ms_by"]["tracking-only frames"])
+            + "; sequential (phase 7, a synchronise after each frame) "
+            + stat(seq["tracking-only frames"]) + f"; {smi_line()}")
     return launches
 
 
@@ -2363,6 +2728,7 @@ def main():
     launches_e2e = phase_e2e(dev, decoder)
     launches_loop = phase_loop(dev, decoder)
     launches_reloc = phase_reloc(dev, decoder)
+    launches_pipe = phase_pipelined(dev, decoder)
     launches = phase_long_run(dev, decoder)
     parallel = {"dry_run": phase_dryrun(dev),
                 "large_map": large_map_run(large_map_setup(dev, decoder)),
@@ -2393,6 +2759,7 @@ def main():
         by_path = {"e2e_60_frames_rep": launches_e2e[name],
                    "loop_closure": launches_loop[name],
                    "relocalisation": launches_reloc[name],
+                   "pipelined": launches_pipe[name],
                    "long_run": launches[name],
                    **{k: v[name] for k, v in parallel.items()}}
         rows.append({"name": name, "route": "cuda", "source": src,

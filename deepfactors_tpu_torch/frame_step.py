@@ -72,9 +72,25 @@ def probe_layout(K: int, F: int, S: int = None):
     return off, o
 
 
+def to_device(a, device) -> Tensor:
+    """A host array on ``device`` without synchronising the stream.
+
+    A copy from pageable host memory blocks until the stream has drained;
+    on a CUDA device the array is staged in pinned memory and copied behind
+    the stream's queue (``non_blocking``). PyTorch's caching host allocator
+    records the copy's event on the pinned block and reuses the block only
+    once that event has completed, so the staging buffer may be dropped at
+    once. On the CPU the plain copy stays."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def upload_frame(img, device) -> Tensor:
-    """Host image (float or uint8 [H, W]) -> float32 device tensor."""
-    t = torch.as_tensor(np.ascontiguousarray(img)).to(device)
+    """Host image (float32, float16 or uint8 [H, W]) -> float32 device
+    tensor, widened on the device (``to_device``: no stream sync)."""
+    t = to_device(img, device)
     if t.dtype == torch.uint8:
         return t.to(torch.float32) * (1.0 / 255.0)
     return t.to(torch.float32)

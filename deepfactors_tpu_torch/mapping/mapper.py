@@ -55,6 +55,7 @@ from ..geometry import warping as wp
 from ..geometry.camera import PinholeCamera, camera_pyramid
 from ..geometry.se3 import SE3
 from ..features import detector as det
+from ..models.decoder import Decoder
 from ..features import matching as mt
 from ..ops import dense_sfm as ds
 from ..ops import image as ip
@@ -514,6 +515,19 @@ class Mapper:
         while self.has_work():
             self.mapping_run()
         return s0, s1
+
+    def init_one_frame(self, img, pose=None) -> int:
+        """InitOneFrame (the JAX ``Mapper.init_one_frame``): one keyframe
+        at ``pose`` (identity unless given), the gauge anchored on it."""
+        self.reset()
+        dev = self.device
+        p = pose if pose is not None else se3m.identity(device=dev)
+        s = self.add_keyframe_to_map(img, p)
+        self._anchor_pose = SE3(
+            torch.as_tensor(p.q, dtype=torch.float32, device=dev),
+            torch.as_tensor(p.t, dtype=torch.float32, device=dev))
+        self.mapping_step()
+        return s
 
     def bootstrap_align(self, kf_imgs, kf_dpts, img1):
         """Bootstrap aligner (the JAX ``_bootstrap_align_fn``): 7 yaw
@@ -1066,6 +1080,44 @@ class Mapper:
         if 8 < half < mf:
             b.add(half)
         return sorted(b)
+
+    def prewarm(self, img) -> "Mapper":
+        """First calls of every mapping path (the JAX ``Mapper.prewarm``,
+        which compiles them), on a SCRATCH mapper of this configuration
+        built here: its own pools, scheduler and RANSAC generator, so that
+        this mapper's state and draws stay as they were. ``img`` is a
+        throwaway textured frame [H, W]. One GN iteration over an all-inactive
+        pool in every pool bucket (kernel 2 with no active factor, the
+        assembly, priors and solve); then, with the model decoder or none (a
+        lookup decoder such as ``io/synth.OracleDecoder`` knows only its own
+        frames), a keyframe build, a keyframe event with its gate (kernel 3),
+        match + RANSAC and photometric works, a one-way frame, the mapping
+        runs of the event, and an eviction (Schur + PSD projection). Returns
+        the scratch mapper (its pools serve the facade's own warm-up)."""
+        mp = Mapper(self.cfg, self.cam, decoder=self.decoder,
+                    device=self.device)
+        L = self.cfg.pyramid_levels
+        for P in mp._pool_buckets():
+            z = np.zeros(P, np.int32)
+            pool = FactorPool(src=z, dst=z, dst_is_frame=np.zeros(P, bool),
+                              level=z, active=np.zeros(P, bool))
+            for use_frames in {False, self.cfg.max_frames > 0}:
+                mp._run(pool, tuple(range(L)), 1, use_frames)
+        if self.decoder is None or isinstance(self.decoder, Decoder):
+            ident = se3m.identity(device=self.device)
+            s0 = mp.add_keyframe_to_map(img, ident)
+            mp.update_map()
+            shifted = np.roll(img, 4, axis=1)
+            s1 = mp.enqueue_keyframe(
+                shifted, SE3(ident.q, torch.tensor([0.02, 0.0, 0.0],
+                                                   device=self.device)))
+            if self.cfg.max_frames:
+                mp.enqueue_frame(shifted, SE3(ident.q, ident.t), s1)
+            while mp.has_work():
+                mp.mapping_run()
+            mp.update_map()
+            mp.marginalize_keyframe(s0)
+        return mp
 
     def update_map(self):
         """Re-materialise the depth maps after optimisation (UpdateMap,

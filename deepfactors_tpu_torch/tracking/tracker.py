@@ -114,6 +114,32 @@ class CameraTracker:
             self.error = float(err)
         return TrackResult(self.pose_ck, stats[0], stats[1])
 
+    def track_burst(self, img_pyrs, grad_pyrs):
+        """Track N stacked frames back to back, each from the previous
+        frame's device pose, with no host read between them (the JAX
+        package's ``lax.scan`` burst: one ``track_c2f`` a frame, kernel 1
+        at P = 1 per GN iteration).
+
+        img_pyrs/grad_pyrs: per-level stacked tensors [N, h, w] /
+        [N, h, w, 2]. Updates pose_ck to the last frame's. Returns
+        (poses_q [N, 4], poses_t [N, 3], stats [N, 2]) on the device."""
+        if self.kf_imgs is None:
+            raise RuntimeError("TrackBurst called before a keyframe was set")
+        q, t = self.pose_ck.q, self.pose_ck.t
+        qs, ts, sts = [], [], []
+        for i in range(img_pyrs[0].shape[0]):
+            q, t, st = track_c2f(self.cfg, self.cams, SE3(q, t),
+                                 self.kf_imgs, self.kf_dpts,
+                                 tuple(p[i] for p in img_pyrs),
+                                 tuple(g[i] for g in grad_pyrs))
+            qs.append(q)
+            ts.append(t)
+            sts.append(st)
+        qs, ts, stats = torch.stack(qs), torch.stack(ts), torch.stack(sts)
+        self.pose_ck = SE3(qs[-1], ts[-1])
+        self.stats = stats[-1]
+        return qs, ts, stats
+
     def get_pose_estimate(self) -> SE3:
         return se3m.mul(self.kf_pose_wk, se3m.inverse(self.pose_ck))
 

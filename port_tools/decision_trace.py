@@ -1,4 +1,4 @@
-"""Per-frame decision trace of a sequential DeepFactors facade, and the
+"""Per-frame decision trace of a DeepFactors facade, and the
 comparison of two traces: the first frame at which their decisions part,
 with each decision's value beside its threshold.
 
@@ -12,12 +12,15 @@ or on the CPU with ``--device cpu``). Compare two with
 which prints the first parting frame, its decisions in both runs with the
 margins to their thresholds, and the largest pose difference before it.
 
-One JSON line a processed frame: ``frame`` (its timestamp), ``kf`` (the
+One JSON line a processed frame: ``frame`` (its timestamp; in pipelined
+mode the decisions are those of the frame the call retired), ``kf`` (the
 keyframe tracked against), ``lost``, ``reloc`` (relocalised), ``keyframe``
 (a keyframe was built), ``oneway`` (a one-way frame was enqueued), the
 probe's ``error``, ``inliers``, ``rot``, ``dist`` (d_full to kf),
 ``d_trans`` (to kf), ``fr_trans`` (the smallest to a live one-way frame),
-``d_kfs`` (d_full to every live keyframe), ``q``/``t`` (the tracked
+``d_kfs`` (d_full to every live keyframe), ``stale`` and ``d_rate`` (a
+pipelined facade's stale flag and keyframe-distance rate after the
+frame), ``q``/``t`` (the tracked
 camera-to-world pose), ``loops`` (local, live global, archived), ``rep``
 (the live rep factors after the frame as [src, dst, surviving matches]:
 a direction with fewer than 8 adds none). The first line holds the
@@ -52,12 +55,15 @@ def attach(df, path):
         fr = [float(probe["fr_trans"][i])
               for i in range(len(m.frame_active_host))
               if m.frame_active_host[i] and not m.frame_marg_host[i]]
+        cur.update(stale=bool(kw.get("stale", False)))
         cur.update(kf=int(kf), error=float(probe["error"]),
                    inliers=float(probe["inliers"]), rot=float(probe["rot"]),
                    dist=float(d[kf]), d_trans=float(probe["d_trans"][kf]),
                    fr_trans=min(fr) if fr else None,
                    d_kfs={int(s): float(d[s]) for s in m.kf_slots})
-        return decide(*a, **kw)
+        out = decide(*a, **kw)
+        cur.update(d_rate=float(df._d_rate))
+        return out
 
     def traced_enqueue_frame(*a, **kw):
         cur["oneway"] = True

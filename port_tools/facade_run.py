@@ -28,6 +28,18 @@ the RANSAC draws on the CPU, from a generator seeded 42 as the port's
 mapper on the CPU seeds its own (a card run then sees the hypotheses of a
 CPU run: the draws of a CUDA generator differ).
 
+``--bench-sequence`` runs bench.py's end-to-end row instead
+(chip_smoke.py's phase 8, ``run_pipelined``): ``orbit_trajectory(--frames)``
+with its default sweep (300 frames unless given), tools/bench_e2e.py's
+``build_system(max_keyframes=10, ...)`` at ``--pipeline-depth N`` (N frames
+in flight; 0, sequential, unless given), ``prewarm()``, bootstrap on frames
+0 and 2, 10 warm frames, ``flush()``, the timed frames (``e2e_fps``),
+``flush()``. ``--sync-audit error`` runs its dispatches under
+``torch.cuda.set_sync_debug_mode``, ``warn`` lists every synchronising call
+site; the audit's cost then falls inside ``e2e_fps`` and the latencies (off
+unless given). ``--pipeline-depth`` is taken only with
+``--bench-sequence``.
+
 The counterpart on the CPU for the JAX package, with the same arguments, is
 ``port_tools/jax_smoke_reference.py``.
 
@@ -37,6 +49,8 @@ Run from the repository root on a machine with a GPU:
     python3 port_tools/facade_run.py --scene-seed 42 --frames 186 \
         --use-reprojection --loop-closure --loop-active-window 8 \
         --loop-max-dist 0.35 [--time-parts]
+    python3 port_tools/facade_run.py --bench-sequence --pipeline-depth 1 \
+        --scene-seed 7 [--sync-audit error|warn] [--repeat 2]
 """
 import argparse
 import json
@@ -94,7 +108,8 @@ def main():
     # chip_smoke.py); other values probe how far a run depends on one
     # decision falling a frame earlier or later
     ap.add_argument("--frame-dist-threshold", type=float, default=0.12)
-    ap.add_argument("--frames", type=int, default=60)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="frames of the orbit (60; 300 with --bench-sequence)")
     ap.add_argument("--max-keyframes", type=int, default=32)
     ap.add_argument("--max-factors", type=int, default=128)
     ap.add_argument("--repeat", type=int, default=1)
@@ -109,7 +124,17 @@ def main():
     ap.add_argument("--decoder-device", default=None, choices=("cuda", "cpu"))
     ap.add_argument("--plain-kernels", action="store_true")
     ap.add_argument("--cpu-draws", action="store_true")
+    ap.add_argument("--pipeline-depth", type=int, default=0)
+    ap.add_argument("--bench-sequence", action="store_true")
+    ap.add_argument("--stop", type=int, default=None,
+                    help="with --bench-sequence: feed frames up to stop - 1 "
+                         "only (the orbit's pacing stays that of --frames)")
+    ap.add_argument("--sync-audit", default="off",
+                    choices=("error", "warn", "off"))
     args = ap.parse_args()
+    if args.pipeline_depth and not args.bench_sequence:
+        ap.error("--pipeline-depth is taken only with --bench-sequence")
+    args.frames = args.frames or (300 if args.bench_sequence else 60)
 
     import torch
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -130,6 +155,30 @@ def main():
     if (args.decoder_device or args.device) != args.device:
         dec = DecoderOn(dec, args.device)
     for rep in range(args.repeat):
+        if args.bench_sequence:
+            r = cs.run_pipelined(
+                args.device, dec, f"run {rep}", args.scene_seed,
+                n_frames=args.frames, depth=args.pipeline_depth,
+                audit=None if args.sync_audit == "off" else args.sync_audit,
+                ransac_draw=cpu_draws() if args.cpu_draws else None,
+                stop=args.stop, trace=args.trace)
+            df = r["df"]
+            print(json.dumps({
+                "device": smi, "scene_seed": args.scene_seed,
+                "frames": args.frames, "pipeline_depth": args.pipeline_depth,
+                "e2e_fps": r["e2e_fps"], "ate_m": r["ate"],
+                "tracked_fraction": r["tracked"],
+                "n_lost_frames": df.n_lost_frames, "n_frames": df.n_frames,
+                "trajectory_len": len(df.trajectory),
+                "n_keyframes_built": df.mapper._next_kid,
+                "n_evictions": df.n_evictions, "loops": r["loops"],
+                "loops_at": r["loop_at"],
+                "n_relocalizations": df.n_relocalizations,
+                "tracking_only_ms": r["ms_by"]["tracking-only frames"],
+                "audited_dispatches": r["audited"],
+                "sync_sites": len(r["sync_sites"]),
+                "launches": cs.launch_counts()}), flush=True)
+            continue
         r = cs.run_facade(args.device, dec, f"run {rep}", args.scene_seed,
                           args.frames, args.max_keyframes, args.max_factors,
                           frame_dist_threshold=args.frame_dist_threshold,

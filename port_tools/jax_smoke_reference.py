@@ -28,6 +28,18 @@ Run on the CPU, from the repository root:
     JAX_PLATFORMS=cpu python port_tools/jax_smoke_reference.py \
         --use-reprojection --loop-closure --loop-active-window 8 \
         --loop-max-dist 0.35 --frames 186 --scene-seed 42
+the bench's own row (``bench.py``'s ``bench_e2e(..., pipeline_depth=1)``,
+chip_smoke.py's pipelined phase): ``--bench-sequence`` renders
+``orbit_trajectory(--frames)`` with its default sweep of 2.6*pi (300
+frames unless given), builds ``tools/bench_e2e.build_system(...,
+max_keyframes=10, dist_threshold=2.0, loop_closure=True,
+use_reprojection=True, pipeline_depth=--pipeline-depth)``, calls
+``prewarm()``, bootstraps on frames 0 and 2 (``frame_gap=2``), feeds 10
+warm frames, ``flush()``, the rest, and ``flush()`` again:
+    JAX_PLATFORMS=cpu python port_tools/jax_smoke_reference.py \
+        --bench-sequence --pipeline-depth 1 --scene-seed 7
+``--pipeline-depth N`` (0 unless given) runs any of the above pipelined,
+with a ``flush()`` after the last frame.
 ``--trace FILE`` writes the per-frame decision trace of
 ``port_tools/decision_trace.py`` (compare it with the port's from
 ``port_tools/facade_run.py --trace``). Prints one JSON line. Its wall-clock numbers are CPU numbers and say
@@ -48,11 +60,13 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 SEQ_LEN = 300
+WARM = 10        # the bench row's warm frames before its first flush()
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=60)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="frames of the orbit (60; 300 with --bench-sequence)")
     ap.add_argument("--max-keyframes", type=int, default=32)
     ap.add_argument("--max-factors", type=int, default=128)
     ap.add_argument("--scene-seed", type=int, default=7)
@@ -66,8 +80,17 @@ def main():
     ap.add_argument("--loop-max-dist", type=float, default=0.5)
     ap.add_argument("--trace", default=None,
                     help="write the per-frame decision trace here")
+    ap.add_argument("--pipeline-depth", type=int, default=0)
+    ap.add_argument("--bench-sequence", action="store_true",
+                    help="bench.py's end-to-end row (see the docstring)")
+    ap.add_argument("--ransac-seed", type=int, default=None,
+                    help="seed of the mapper's RANSAC key chain (its own: "
+                         "42); how far a run depends on RANSAC's draws")
+    ap.add_argument("--stop", type=int, default=None,
+                    help="feed frames up to stop - 1 only (the orbit's "
+                         "pacing stays that of --frames)")
     args = ap.parse_args()
-    n_frames = args.frames
+    n_frames = args.frames or (300 if args.bench_sequence else 60)
 
     from deepfactors_tpu.geometry.camera import PinholeCamera
     from deepfactors_tpu.io import synth
@@ -93,9 +116,22 @@ def main():
     decoder = Decoder(ncfg, params=load_params(prefix + ".pkl"))
 
     scene = synth.random_room(args.scene_seed, n_boxes=3)
-    poses = synth.orbit_trajectory(SEQ_LEN, sweep=3.2 * np.pi)[:n_frames]
+    if args.bench_sequence:
+        poses = synth.orbit_trajectory(n_frames)
+    else:
+        poses = synth.orbit_trajectory(SEQ_LEN, sweep=3.2 * np.pi)[:n_frames]
     frames = synth.render_sequence(scene, cam, poses, H, W)
 
+    if args.bench_sequence:
+        from tools.bench_e2e import build_system
+
+        df = build_system(cam, H, W, decoder, max_keyframes=10,
+                          dist_threshold=2.0, loop_closure=True,
+                          use_reprojection=True,
+                          pipeline_depth=args.pipeline_depth)
+        args.use_reprojection = args.loop_closure = True
+    else:
+        df = None
     cfg = SystemConfig(
         mapper=MapperConfig(
             max_keyframes=args.max_keyframes, max_frames=2,
@@ -107,10 +143,12 @@ def main():
         frame_dist_threshold=args.frame_dist_threshold,
         loop_closure=args.loop_closure,
         loop_active_window=args.loop_active_window,
-        loop_max_dist=args.loop_max_dist)
-    df = DeepFactors(cfg, cam, decoder=decoder,
-                     vocabulary=default_vocabulary() if args.loop_closure
-                     else None)
+        loop_max_dist=args.loop_max_dist,
+        pipeline_depth=args.pipeline_depth)
+    if df is None:
+        df = DeepFactors(cfg, cam, decoder=decoder,
+                         vocabulary=default_vocabulary() if args.loop_closure
+                         else None)
     # every dense verification of a global-loop candidate set: the frame,
     # the candidates' similarities, verified inlier shares and translations
     verifications = []
@@ -130,7 +168,17 @@ def main():
             return out
 
         ld._verify = logged_verify
+    if args.ransac_seed is not None:
+        df.mapper._rng_key = jax.random.PRNGKey(args.ransac_seed)
     loops = []
+    prewarm_s = None
+    if args.bench_sequence:
+        t0 = time.perf_counter()
+        df.prewarm()
+        prewarm_s = time.perf_counter() - t0
+    # frames fed -> keyframes built so far (a pipelined facade builds a
+    # frame's keyframe when it retires it, depth frames later)
+    kf_at = []
     t0 = time.perf_counter()
     df.bootstrap_two_frames(frames[0], frames[2], frame_gap=2)
     close_trace = None
@@ -140,12 +188,20 @@ def main():
     df.trajectory = [(0.0, df.pose_wc)]
     first_lost = None
     ate_at = {}
-    for i in range(3, n_frames):
+    stop = args.stop or n_frames
+    for i in range(3, stop):
         if args.loop_closure:
             frame_no[0] = i
         n_loops = len(df.loop_links)
         n_reloc = df.n_relocalizations
+        n_kid = df.mapper._next_kid
         df.process_frame(float(i), frames[i])
+        if args.bench_sequence and i == 2 + WARM:
+            df.flush()
+        if i == stop - 1:
+            df.flush()
+        if df.mapper._next_kid > n_kid:
+            kf_at.append(i)
         for link in df.loop_links[n_loops:]:
             loops.append([i, str(link)])
         if df.n_relocalizations > n_reloc:
@@ -173,6 +229,15 @@ def main():
         # frames fed so far -> [rigid ATE (m), evictions], while none is lost
         "ate_and_evictions_at": ate_at,
         "n_frames_processed": df.n_frames,
+        "trajectory_len": len(est),
+        "pending_after_flush": len(df._pending),
+        "pipeline_depth": args.pipeline_depth,
+        "bench_sequence": args.bench_sequence,
+        "ransac_seed": args.ransac_seed,
+        "scene_seed": args.scene_seed,
+        "n_keyframes_built": df.mapper._next_kid,
+        # frames fed at which a keyframe was built (retired)
+        "keyframe_frames": kf_at,
         "use_reprojection": args.use_reprojection,
         "loop_closure": args.loop_closure,
         "n_local_links": df.n_local_links,
@@ -185,6 +250,7 @@ def main():
         "n_rep_factors_live": int(df.mapper.rep_pool.active.sum())
         if args.use_reprojection else 0,
         "cpu_wall_s": wall,
+        "cpu_prewarm_s": prewarm_s,
         "platform": jax.devices()[0].platform,
     }))
 

@@ -13,7 +13,11 @@ frames, a recovery against the live pool and one against the archive),
 with ``--phase rep_ops`` one keyframe event's reprojection work at the
 main path's shapes: detect_pyramid on one 192x256 frame, match + RANSAC
 both ways of one pair (128 hypotheses), and the rep system of 32 factors
-with its assembly; each without its set-up) once to warm up, then again under
+with its assembly, with ``--phase pipelined`` phase 8's run, bench.py's
+end-to-end row through the pipelined facade (300 frames of room 7 at
+``pipeline_depth=1``, its prewarm and rendering included; no sync audit,
+no upload or probe check);
+each without its set-up) once to warm up, then again under
 ``torch.profiler`` with CUDA activity only, and prints:
   - the run's wall time and the device's busy time (the union of all
     kernel and copy intervals), hence the device's idle share;
@@ -112,7 +116,7 @@ def main():
     ap.add_argument("--long", action="store_true")
     ap.add_argument("--phase", default=None,
                     choices=("large_map", "odometry", "rep_ops", "loop",
-                             "reloc"))
+                             "reloc", "pipelined"))
     args = ap.parse_args()
 
     import torch
@@ -140,6 +144,9 @@ def main():
         phase = lambda: cs.odometry_run(setup)
     elif name == "rep_ops":
         phase = rep_ops_problem(cs)
+    elif name == "pipelined":
+        phase = lambda: cs.run_pipelined("cuda", dec, "pipelined", audit=None,
+                                         checks=False)
     else:
         run = {"long": cs.phase_long_run, "loop": cs.phase_loop,
                "reloc": cs.phase_reloc}.get(name, cs.phase_e2e)
