@@ -83,6 +83,23 @@ Phases, in order (any failure exits non-zero before the final line):
      torch.cuda.set_sync_debug_mode("error"); and the row of random_room(42),
      where the card closes archived loops: every frame tracked, at least
      one archived loop.
+  9. the reference's refinement configuration (after phase 6): the
+     sequential facade built by the port's config.build_system_config from
+     data/flags/alg_refine.flags (reprojection and geometric factors and
+     loop closure on, pho_iters 15,15,30, 4 back-connections, a window of
+     16, the dense solve) with the orbit's tracking_dist_threshold of 5.0,
+     on 100 frames of random_room(7): every frame tracked, geometric
+     factors drawn at every keyframe event and assembled into the GN
+     iterations, no Schur solve, kernels 1-3 launched, the ATE under a
+     bound set from the JAX facade's CPU run and the card's; prints the
+     host latencies by event kind and the geo factor counts.
+     9a. (first) geometric_system at the path's shapes, 16 factors of 128
+     points, CS 32: card against CPU, each block within 1e-4, validity and
+     nearest-pixel lookups identical but at round-off of an integer
+     (counted); timed.
+     9b. (second) the depth-prior scenario of tests/test_mapper.py:174 at
+     192x256: the code the JAX package's CPU run reaches, and the first GN
+     iteration's fall in the depth error within 10% of JAX's.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -331,6 +348,49 @@ PIPE_SPIN_CYCLES = 200_000_000
 # readings that later phases print beside their own (phase 7's sequential
 # frame latencies beside phase 8's pipelined ones)
 READINGS: dict = {}
+# Phase 9: the reference's refinement configuration, built by the port's
+# config.build_system_config from data/flags/alg_refine.flags (common.flags
+# beneath it: reprojection, geometric factors and loop closure on,
+# pho_iters 15,15,30, LASTN with 4 back-connections, a window of 16, the
+# dense solve) with one command-line override for the synthetic orbit's
+# pacing: tracking_dist_threshold 5.0, as every other phase uses. At the
+# flags' 2.0, equal to the keyframe distance, a frame that crosses 2.0 is
+# lost before it can become a keyframe: the JAX facade loses room 7 at
+# frame 8 so. The geometric pool holds max_keyframes *
+# max_back_connections + 16 factors (the rep pool's worst-case rule): the
+# default of 16 is exhausted at the fifth keyframe event with four
+# back-connections, in the JAX package as here. The JAX facade's CPU run
+# (port_tools/jax_smoke_reference.py --flagfile data/flags/alg_refine.flags
+# --set tracking_dist_threshold=5.0 --frames 100 --scene-seed 7) tracks
+# every frame of room 7's first 100: 18 keyframes built, 2 evictions, no
+# loop, 54 geo and 75 rep factors live at the end, rigid ATE 0.1948 m.
+REFINE_FLAGFILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "data", "flags", "alg_refine.flags")
+REFINE_OVERRIDES = ("--tracking_dist_threshold=5.0",)
+REFINE_SCENE_SEED = 7
+REFINE_FRAMES = 100
+REFINE_JAX = dict(ate=0.1948, keyframes_built=18, evictions=2, geo_live=54,
+                  rep_live=75, loops=(0, 0, 0))
+# above JAX's 0.1948 m, the card's 0.1848 m (two runs) and the port's
+# 0.1879 m on a CPU with JAX's draws replayed
+REFINE_ATE_BOUND_M = 0.25
+# Phase 9a: geometric_system at the path's shapes, card against CPU:
+# 16 factors of 128 points, CS 32, 192x256, each block of JtJ and Jtr and
+# the error sum within GEO_SYS_TOL of the block's largest entry; the
+# validity masks and the nearest-pixel lookups identical but for points
+# whose projected pixel lies within GEO_ROUNDOFF_PX of an integer
+GEO_FACTORS, GEO_POINTS = 16, 128
+GEO_SYS_TOL = 1e-4
+GEO_ROUNDOFF_PX = 1e-3
+# Phase 9b: tests/test_mapper.py:174's depth-prior scenario at 192x256; the
+# decoded depth's mean absolute error to the target falls from 0.5 to
+# 0.0712 in the first GN iteration (a factor 7.025) and to 0 when mapped to
+# the end, code -0.5555554, on the JAX package's CPU
+# (port_tools/jax_smoke_reference.py --depth-prior)
+DPRIOR_FACTOR_JAX = 7.025
+DPRIOR_FACTOR_TOL = 0.10
+DPRIOR_CODE_JAX = -0.5555554
+DPRIOR_CODE_TOL = 1e-4
 
 
 def large_map_links():
@@ -1679,7 +1739,7 @@ def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
                tracking_error_threshold=0.3,
                loop_active_window=LOOP_ACTIVE_WINDOW,
                loop_max_dist=LOOP_MAX_DIST, time_parts=True, trace=None,
-               ransac_draw=None):
+               ransac_draw=None, system_cfg=None, setup=None):
     """The sequential facade over the first ``n_frames`` of the room orbit,
     bootstrap on frames 0 and 2. Sets the launch counts to 0 first. Returns
     the facade, the scene's camera and frames, and the run's readings; with
@@ -1696,6 +1756,10 @@ def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
     the orbit or -1 for a frame of noise (default: 3 .. n_frames - 1).
     ``trace``: a file for port_tools/decision_trace.py's per-frame trace;
     ``ransac_draw``: the mapper's RANSAC draw hook (default: its own).
+    ``system_cfg``: a whole ``SystemConfig`` in place of the one built
+    from the arguments above (its mapper's height and width must be the
+    scene's); ``setup``: a function called with the facade before the
+    bootstrap (instrumentation of its own).
     On the CPU (``dev="cpu"``) the kernels' plain twins run and the launch
     counts stay 0."""
     import torch
@@ -1723,6 +1787,10 @@ def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
         tracking_error_threshold=tracking_error_threshold,
         frame_dist_threshold=frame_dist_threshold, loop_closure=loop_closure,
         loop_active_window=loop_active_window, loop_max_dist=loop_max_dist)
+    if system_cfg is not None:
+        cfg = system_cfg
+        use_reprojection = cfg.mapper.use_reprojection
+        loop_closure = cfg.loop_closure
     df = DeepFactors(cfg, cam, decoder=decoder,
                      vocabulary=(default_vocabulary(device=dev)
                                  if loop_closure else None), device=dev)
@@ -1825,6 +1893,8 @@ def run_facade(dev, decoder, tag, scene_seed, n_frames, max_keyframes,
         return ok
 
     df._relocalize = counting_relocalize
+    if setup is not None:
+        setup(df)
     # the module-level patch of detect_pyramid is undone however the run ends
     try:
         reset_launch_counts()
@@ -2688,6 +2758,306 @@ def odometry_run(setup):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# phase 9: geometric factors and depth priors
+# ----------------------------------------------------------------------------
+
+def refine_config():
+    """The refinement configuration of phase 9 (see REFINE_FLAGFILE)."""
+    from deepfactors_tpu_torch import config
+
+    cfg = config.build_system_config(config.parse_args(
+        [f"--flagfile={REFINE_FLAGFILE}", *REFINE_OVERRIDES]), H, W)
+    m = cfg.mapper
+    return cfg._replace(mapper=m._replace(
+        max_geo_factors=m.max_keyframes * m.max_back_connections + 16))
+
+
+def phase_refine(dev, decoder):
+    """Phase 9: the facade in the reference's refinement configuration on
+    REFINE_FRAMES frames of random_room(REFINE_SCENE_SEED), sequential."""
+    from collections import Counter
+
+    from deepfactors_tpu_torch.solver import system as sysm
+
+    cfg = refine_config()
+    assert cfg.mapper.use_geometric and not cfg.mapper.use_schur
+    solves = {"dense": 0, "schur": 0}
+    draws = []          # the keyframe id being built at each geo draw
+
+    def counting(kind, fn):
+        def wrapped(*a):
+            solves[kind] += 1
+            return fn(*a)
+        return wrapped
+
+    def setup(df):
+        m = df.mapper
+        draw = m.geo_draw
+
+        def counting_draw(*a):
+            draws.append(m._next_kid - 1)
+            return draw(*a)
+
+        m.geo_draw = counting_draw
+
+    dense, schur = sysm.solve_damped, sysm.solve_schur_codes
+    sysm.solve_damped = counting("dense", dense)
+    sysm.solve_schur_codes = counting("schur", schur)
+    try:
+        r = run_facade(dev, decoder, "refine", scene_seed=REFINE_SCENE_SEED,
+                       n_frames=REFINE_FRAMES,
+                       max_keyframes=cfg.mapper.max_keyframes,
+                       max_factors=cfg.mapper.max_factors, system_cfg=cfg,
+                       time_parts=False, setup=setup)
+    finally:
+        sysm.solve_damped, sysm.solve_schur_codes = dense, schur
+    launches = launch_counts()
+    df = r["df"]
+    m = df.mapper
+    assert df.n_lost_frames == 0 and r["tracked"] == 1.0, "frames lost"
+    # geometric factors at every keyframe event (one draw per
+    # back-connection), into the pool and assembled into the GN iterations
+    per_event = Counter(draws)
+    events = list(range(2, m._next_kid))
+    assert events and all(per_event[k] >= 1 for k in events), \
+        (events, per_event)
+    n_geo = int(m.geo_pool.active.sum())
+    assert n_geo > 0, "no geo factor live"
+    gs = m.geo_stats
+    assert gs["iterations"] > 0 and gs["factor_terms"] > gs["iterations"], gs
+    # the dense solve: a geometric factor couples two keyframes' codes
+    assert solves["schur"] == 0 and solves["dense"] > 0, solves
+    path = ("se3_gram_batch", "sfm_gram_batch", "sfm_error_batch")
+    assert all(launches[k] > 0 for k in path), f"kernel not launched: {launches}"
+    assert r["ate"] < REFINE_ATE_BOUND_M, \
+        f"ATE {r['ate']} >= {REFINE_ATE_BOUND_M}"
+    loops = (df.n_local_links, df.n_live_global_loops, df.n_archived_loops)
+    log(f"refine: {REFINE_FLAGFILE} with {list(REFINE_OVERRIDES)}, "
+        f"geo pool {cfg.mapper.max_geo_factors}; keyframes built "
+        f"{m._next_kid} (JAX {REFINE_JAX['keyframes_built']}), evictions "
+        f"{df.n_evictions} ({REFINE_JAX['evictions']}), loops {loops} "
+        f"({REFINE_JAX['loops']}), rigid ATE {r['ate']:.4f} m "
+        f"({REFINE_JAX['ate']}; bound {REFINE_ATE_BOUND_M})")
+    log(f"refine: geo draws per keyframe event {[per_event[k] for k in events]}"
+        f"; geo factors live {n_geo} (JAX {REFINE_JAX['geo_live']}), rep "
+        f"{int(m.rep_pool.active.sum())} ({REFINE_JAX['rep_live']}); GN "
+        f"iterations assembling geo factors {gs['iterations']} "
+        f"({gs['factor_terms']} factor terms, "
+        f"{gs['factor_terms'] / gs['iterations']:.1f} an iteration); solves "
+        f"{solves}; {smi_line() if dev != 'cpu' else 'cpu'}")
+    return launches
+
+
+def _geo_inputs(dev):
+    """Phase 9a's inputs on ``dev``: GEO_FACTORS factors between neighbouring
+    rendered room views (slot p -> p + 1, pose 0 perturbed), their decode
+    pools (prox of the rendered depth, a random CS-32 Jacobian, codes), the
+    Sobel gradients of the decoded depths, GEO_POINTS points a factor."""
+    import torch
+    from deepfactors_tpu_torch.features.sampler import sample_uniform_pixels
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.geometry import warping as wp
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+    from deepfactors_tpu_torch.ops import image as ip
+
+    P, N = GEO_FACTORS, GEO_POINTS
+    cam, levels, q, t, codes = make_pools(dev, K=P + 1)
+    lv = levels[0]
+    prx0 = wp.depth_to_prox(lv["dpt"], 2.0)
+    jac = lv["jac"]
+    dpt = wp.prox_to_depth(torch.clamp(
+        prx0 + torch.einsum("kchw,kc->khw", jac, codes), min=1e-4), 2.0)
+    dgrad = ip.sobel_gradients(dpt).contiguous()
+    src = torch.arange(P, device=dev)
+    dst = src + 1
+    pose = SE3(q, t)
+    pose0 = perturb(se3m.index(pose, src), seed=9)
+    pose1 = se3m.index(pose, dst)
+    g = torch.Generator().manual_seed(5)
+    pts = torch.stack([sample_uniform_pixels(N, W, H, 1, g)
+                       for _ in range(P)]).to(dev)
+    return cam, dict(pose0=pose0, pose1=pose1, code0=codes[src],
+                     code1=codes[dst], points=pts, prx0=prx0, jac=jac,
+                     dgrad=dgrad, src=src, dst=dst)
+
+
+def _geo_call(cam, a, fn="system"):
+    from deepfactors_tpu_torch.ops import sparse_factors as sf
+    if fn == "system":
+        return sf.geometric_system(
+            a["pose0"], a["pose1"], a["code0"], a["code1"], cam, a["points"],
+            a["prx0"], a["jac"], a["prx0"], a["jac"], a["dgrad"],
+            huber_delta=0.1, avg_dpt=2.0, src=a["src"], dst=a["dst"])
+    return sf._geo_warp(a["pose0"], a["pose1"], a["code0"], a["code1"], cam,
+                        a["points"], a["prx0"], a["jac"], a["prx0"], a["jac"],
+                        2.0, a["src"], a["dst"], border=1, min_dpt=0.0)
+
+
+def phase_geo_system(dev):
+    """Phase 9a: ``geometric_system`` (plain PyTorch, no kernel of its own)
+    on the card against the CPU at the refinement path's shapes; timed."""
+    import torch
+    from deepfactors_tpu_torch.geometry import camera as cm
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+
+    cam, a = _geo_inputs(dev)
+    cpu = {k: (SE3(v.q.cpu(), v.t.cpu()) if isinstance(v, SE3) else v.cpu())
+           for k, v in a.items()}
+    sd, sc = _geo_call(cam, a), _geo_call(cam, cpu)
+    *_, corr_d, _, _ = _geo_call(cam, a, "warp")
+    *_, corr_c, _, _ = _geo_call(cam, cpu, "warp")
+    pd, pc = corr_d.pix1.cpu(), corr_c.pix1
+    vd = (corr_d.valid & cm.pixel_valid(cam, corr_d.pix1)).cpu()
+    vc = corr_c.valid & cm.pixel_valid(cam, corr_c.pix1)
+    near = ((pc - pc.round()).abs() < GEO_ROUNDOFF_PX).any(-1)
+    mask_flips = vd != vc
+    lookup_flips = (pd.to(torch.int64) != pc.to(torch.int64)).any(-1) & vc
+    assert not (mask_flips & ~near).any(), "validity differs off round-off"
+    assert not (lookup_flips & ~near).any(), "lookup differs off round-off"
+    clean = ~(mask_flips | lookup_flips).any(-1)        # [P] factors
+    assert int(clean.sum()) >= GEO_FACTORS // 2, clean
+    CS = a["code0"].shape[-1]
+    edges = np.cumsum([0, 6, 6, CS, CS])
+    worst = 0.0
+    for p in np.nonzero(clean.numpy())[0]:
+        for i in range(4):
+            r = slice(edges[i], edges[i + 1])
+            b = sc.Jtr[p, r]
+            worst = max(worst, float((sd.Jtr[p, r].cpu() - b).abs().max()
+                                     / b.abs().max().clamp(min=1e-30)))
+            for j in range(4):
+                c = slice(edges[j], edges[j + 1])
+                b = sc.JtJ[p, r, c]
+                worst = max(worst, float(
+                    (sd.JtJ[p, r, c].cpu() - b).abs().max()
+                    / b.abs().max().clamp(min=1e-30)))
+    res = float(((sd.residual.cpu() - sc.residual).abs()
+                 / sc.residual.abs().clamp(min=1e-30))[clean].max())
+    assert worst < GEO_SYS_TOL and res < GEO_SYS_TOL, (worst, res)
+    assert torch.equal(sd.inliers.cpu()[clean], sc.inliers[clean])
+    assert torch.isfinite(sd.JtJ).all() and float(sc.residual.sum()) > 0
+    # no synchronising op in a call (every GN iteration makes one)
+    if dev != "cpu":
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _geo_call(cam, a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _geo_call(cam, a)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    dev_us, n_kernels = device_kernel_time(lambda: _geo_call(cam, a))
+    log(f"geo system: {GEO_FACTORS} factors x {GEO_POINTS} points, CS {CS}, "
+        f"{H}x{W}: card vs CPU, worst block {worst:.2e}, error sum "
+        f"{res:.2e} (tolerance {GEO_SYS_TOL}); valid points "
+        f"{int(vc.sum())} of {vc.numel()}; within {GEO_ROUNDOFF_PX} px of "
+        f"an integer {int(near.sum())}, validity flips "
+        f"{int(mask_flips.sum())}, lookup flips {int(lookup_flips.sum())}, "
+        f"factors compared {int(clean.sum())}; a call: host "
+        f"{np.median(host):.3f} ms (synchronised), device "
+        + (f"{dev_us / 1e3:.3f} ms in {n_kernels} kernels (torch.profiler)"
+           if dev_us is not None else "not measured")
+        + (f", no synchronising op; {smi_line()}" if dev != "cpu"
+           else "; cpu"))
+
+
+def device_kernel_time(fn):
+    """(device µs, kernel count) of one call of ``fn``: the durations of the
+    CUDA kernels torch.profiler records, summed; (None, None) where it
+    records none. CUDA events around back-to-back calls do not time a call
+    of hundreds of small launches: the launch queue fills behind a spin
+    kernel, and the device then waits on the host."""
+    import torch
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ks = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    except Exception as e:      # no CUDA activity to record (a CPU run)
+        log(f"device_kernel_time: no device trace ({e!r})")
+        return None, None
+    if not ks:
+        return None, None
+    return sum(e.time_range.elapsed_us() for e in ks), len(ks)
+
+
+def depth_prior_run(dev, pho_iters=(6, 6), max_steps=None):
+    """tests/test_mapper.py:174's scenario at H x W on ``dev``: two keyframes
+    of one image at the identity with a flat synthetic decode (prx = 0.5 +
+    0.1 code[0], CS 2, 2 levels), both tied to a depth of 2.5 m (sigma 0.05,
+    code prior sigma 100), mapped until the work queue drains or for
+    ``max_steps`` mapping steps. Returns the mean absolute error of keyframe
+    0's decoded level-0 depth to the target before and after, the steps and
+    keyframe 0's first code entry."""
+    import torch
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.geometry.camera import PinholeCamera
+    from deepfactors_tpu_torch.mapping.mapper import Mapper, MapperConfig
+    from deepfactors_tpu_torch.ops import image as ip
+
+    CS2, target_dpt = 2, 2.5
+    cfg = MapperConfig(
+        max_keyframes=2, max_frames=1, max_factors=4, code_size=CS2,
+        height=H, width=W, pyramid_levels=2, pho_iters=pho_iters,
+        huber_delta=0.3, connection_mode="LASTN", max_back_connections=1,
+        lm_lambda=1e-4, use_schur=False, use_depth_prior=True,
+        dpt_prior_sigma=0.05, code_prior=100.0)
+    cam = PinholeCamera.create(fx=60.0, fy=60.0, u0=W / 2, v0=H / 2,
+                               width=W, height=H)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    img = torch.tensor(0.5 + 0.2 * np.sin(xs / 5) * np.cos(ys / 4),
+                       dtype=torch.float32, device=dev)
+    m = Mapper(cfg, cam, device=dev)
+    img_pyr = tuple(ip.build_pyramid(img, 2))
+    grad_pyr = tuple(ip.build_gradient_pyramid(img_pyr))
+    prx0 = tuple(torch.full_like(im, 0.5) for im in img_pyr)
+    jac = tuple(torch.stack([torch.full_like(im, 0.1), torch.zeros_like(im)])
+                for im in img_pyr)
+    stdev = tuple(torch.zeros_like(im) for im in img_pyr)
+    pyramids = (img_pyr, grad_pyr, prx0, jac, stdev,
+                torch.zeros(CS2, device=dev))
+    p0 = se3m.identity(device=dev)
+    s0 = m.add_keyframe_to_map(img, p0, pyramids=pyramids)
+    s1 = m.add_keyframe_to_map(img, p0, pyramids=pyramids)
+    m._anchor_pose = p0
+    m._add_photo_pair(s0, s1)
+    target = np.full((H, W), target_dpt, np.float32)
+    m.set_depth_prior(s0, target)
+    m.set_depth_prior(s1, target)
+    err = lambda: float((m.state.levels[0].dpt[s0] - target_dpt).abs().mean())
+    before = err()
+    steps = 0
+    while m.has_work() and (max_steps is None or steps < max_steps):
+        m.mapping_step()
+        steps += 1
+    m.update_map()
+    return dict(before=before, after=err(), steps=steps,
+                c0=float(m.state.code[s0, 0]))
+
+
+def phase_depth_prior(dev):
+    """Phase 9b: the depth prior on the card, held to the JAX package's CPU
+    run of the same inputs: mapped to the end (the JAX test's checks and
+    the code), and the fall of the first GN iteration."""
+    full = depth_prior_run(dev)
+    assert abs(full["c0"] - DPRIOR_CODE_JAX) < DPRIOR_CODE_TOL, full
+    assert full["after"] < 0.05 and full["before"] == 0.5, full
+    one = depth_prior_run(dev, pho_iters=(0, 0), max_steps=1)
+    factor = one["before"] / one["after"]
+    assert abs(factor / DPRIOR_FACTOR_JAX - 1.0) < DPRIOR_FACTOR_TOL, factor
+    log(f"depth prior at {H}x{W}: mean |depth - 2.5| {full['before']} -> "
+        f"{full['after']:.3e} in {full['steps']} mapping steps, code "
+        f"{full['c0']:.7f} (JAX {DPRIOR_CODE_JAX}); after one GN iteration "
+        f"{one['after']:.5f}, a fall by {factor:.4f} (JAX "
+        f"{DPRIOR_FACTOR_JAX}, within {DPRIOR_FACTOR_TOL:.0%})")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ptxas", action="store_true")
@@ -2735,6 +3105,9 @@ def main():
                 "odometry": odometry_run(odometry_setup(dev))}
     par_total = {k: sum(p[k] for p in parallel.values()) for k in launches}
     assert par_total["dense_warp_batch"] > 0 < par_total["bilinear_warp_planes"]
+    phase_geo_system(dev)
+    phase_depth_prior(dev)
+    launches_refine = phase_refine(dev, decoder)
 
     meta = {
         "se3_gram_batch": ("deepfactors_tpu_torch/csrc/se3_gram.cu",
@@ -2761,7 +3134,8 @@ def main():
                    "relocalisation": launches_reloc[name],
                    "pipelined": launches_pipe[name],
                    "long_run": launches[name],
-                   **{k: v[name] for k, v in parallel.items()}}
+                   **{k: v[name] for k, v in parallel.items()},
+                   "refine": launches_refine[name]}
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep,
                      "launches": launches[name] or par_total[name],

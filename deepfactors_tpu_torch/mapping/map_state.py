@@ -7,9 +7,11 @@ keyframe_map.h:31-129, keyframe.h:33-97): all keyframe state lives in dense
 Unlike the JAX package (immutable arrays, every write rebuilds the state),
 ``add_keyframe``, ``update_depth_all``, ``add_link`` and ``remove_link``
 write the pools IN PLACE and return the same state object. The level-0
-depth gradient of the JAX map serves only the geometric factor and comes
-with it. Keypoint descriptors are ``int32`` words holding the bits of the
-JAX package's ``uint32`` ones (features/detector.py).
+depth gradient (``dpt_grad``, read by the geometric factor) is written at
+``add_keyframe`` from the keyframe's code at that moment and only there,
+as in the JAX package: it is not refreshed when the code moves. Keypoint
+descriptors are ``int32`` words holding the bits of the JAX package's
+``uint32`` ones (features/detector.py).
 """
 from __future__ import annotations
 
@@ -54,6 +56,8 @@ class MapState(NamedTuple):
     kp_xy: Tensor     # [K, Kp, 2]
     kp_desc: Tensor   # [K, Kp, 8] int32
     kp_valid: Tensor  # [K, Kp] bool
+    # level-0 depth gradient for the geometric factor (keyframe.h dpt_grad)
+    dpt_grad: Tensor  # [K, H, W, 2]
 
 
 def create(K: int, CS: int, H: int, W: int, num_levels: int, max_links: int,
@@ -81,6 +85,7 @@ def create(K: int, CS: int, H: int, W: int, num_levels: int, max_links: int,
         kp_xy=z(K, max_keypoints, 2),
         kp_desc=z(K, max_keypoints, 8, dtype=torch.int32),
         kp_valid=z(K, max_keypoints, dtype=torch.bool),
+        dpt_grad=z(K, H, W, 2),
     )
 
 
@@ -92,10 +97,13 @@ def add_keyframe(state: MapState, slot: int, pose: SE3, code: Tensor,
     """Write a decoded keyframe into ``slot`` in place (Mapper::BuildKeyframe,
     mapper.cpp:919-1007); depth is materialised immediately. ``jacT_pyr``
     is feature-major [CS, h, w] per level; ``features`` (a
-    ``features.detector.Features``) fills the keypoint pools."""
+    ``features.detector.Features``) fills the keypoint pools. The level-0
+    depth's Sobel gradient goes to ``dpt_grad``."""
     for l, lvl in enumerate(state.levels):
         jac_hwc = jacT_pyr[l].permute(1, 2, 0)
         dpt = ip.update_depth(code, prx0_pyr[l], jac_hwc, avg_dpt)
+        if l == 0:
+            state.dpt_grad[slot] = ip.sobel_gradients(dpt)
         lvl.img[slot] = img_pyr[l]
         lvl.grad[slot] = grad_pyr[l]
         lvl.prx0[slot] = prx0_pyr[l]

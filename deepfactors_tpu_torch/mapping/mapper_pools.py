@@ -1,6 +1,5 @@
 """Host-side factor pools shared by the scheduler and the Mapper (own copy
-of ``deepfactors_tpu/mapping/mapper_pools.py``; the geometric pool comes
-with its slice)."""
+of ``deepfactors_tpu/mapping/mapper_pools.py``)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -46,4 +45,21 @@ def _empty_rep_pool(P: int, M: int) -> RepPool:
         kp0=np.zeros((P, M, 2), np.float32),
         kp1=np.zeros((P, M, 2), np.float32),
         mvalid=np.zeros((P, M), bool),
+    )
+
+
+class GeoPool(NamedTuple):
+    """Sparse geometric factor pool."""
+
+    src: np.ndarray     # [P]
+    dst: np.ndarray     # [P]
+    active: np.ndarray  # [P]
+    points: np.ndarray  # [P, N, 2]
+
+
+def _empty_geo_pool(P: int, N: int) -> GeoPool:
+    return GeoPool(
+        src=np.zeros(P, np.int32), dst=np.zeros(P, np.int32),
+        active=np.zeros(P, bool),
+        points=np.zeros((P, N, 2), np.float32),
     )

@@ -95,6 +95,9 @@ class SystemConfig(NamedTuple):
     loop_cooldown: int = 5
     loop_archive_cap: int = 64    # archive of evicted keyframes (0: none)
     interleave_mapping: bool = False
+    # a flag of the reference's options that no code reads, in the JAX
+    # package as here; kept so that a flag file maps field by field
+    predict_code: bool = True
     # frame pipelining: 0 = sequential (one blocking probe read per frame);
     # N >= 1 = N frames in flight, decisions N frames late (see the module
     # docstring)

@@ -38,6 +38,27 @@ use_reprojection=True, pipeline_depth=--pipeline-depth)``, calls
 warm frames, ``flush()``, the rest, and ``flush()`` again:
     JAX_PLATFORMS=cpu python port_tools/jax_smoke_reference.py \
         --bench-sequence --pipeline-depth 1 --scene-seed 7
+the reference's refinement configuration (chip_smoke.py's phase 9):
+``--flagfile FILE`` builds the system with ``config.build_system_config``
+from ``config.parse_args(["--flagfile=FILE"] + overrides)`` at 192x256
+instead of the settings above (loop closure, reprojection and geometric
+factors, windows and thresholds all come from the flags; the shipped
+vocabulary when the flags turn loop closure on), each ``--set KEY=VALUE``
+an override as on the command line, with one change: the geometric pool
+holds ``max_keyframes * max_back_connections + 16`` factors (the rep
+pool's worst-case rule), since the flags' default of 16 is exhausted at
+the fifth keyframe event with four back-connections:
+    JAX_PLATFORMS=cpu python port_tools/jax_smoke_reference.py \
+        --flagfile data/flags/alg_refine.flags \
+        --set tracking_dist_threshold=5.0 --frames 100 --scene-seed 7
+the depth prior (chip_smoke.py's phase 9b): ``--depth-prior`` runs the
+scenario of tests/test_mapper.py:174 (two keyframes of one image at the
+identity with a flat synthetic decode, prx = 0.5 + 0.1 code[0], CS 2,
+2 levels, both tied to a depth of 2.5 m) at 192x256: mapped until the work
+queue drains, and for one GN iteration (``depth_prior_reference``); it
+prints the decoded level-0 depth's mean absolute error to the target
+before and after each, the steps, the code and the one iteration's fall:
+    JAX_PLATFORMS=cpu python port_tools/jax_smoke_reference.py --depth-prior
 ``--pipeline-depth N`` (0 unless given) runs any of the above pipelined,
 with a ``flush()`` after the last frame.
 ``--trace FILE`` writes the per-frame decision trace of
@@ -86,10 +107,22 @@ def main():
     ap.add_argument("--ransac-seed", type=int, default=None,
                     help="seed of the mapper's RANSAC key chain (its own: "
                          "42); how far a run depends on RANSAC's draws")
+    ap.add_argument("--flagfile", default=None,
+                    help="build the system from this flag file (see the "
+                         "docstring)")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="a flag override after --flagfile, as on the "
+                         "command line")
+    ap.add_argument("--depth-prior", action="store_true",
+                    help="the depth-prior scenario (see the docstring)")
     ap.add_argument("--stop", type=int, default=None,
                     help="feed frames up to stop - 1 only (the orbit's "
                          "pacing stays that of --frames)")
     args = ap.parse_args()
+    if args.depth_prior:
+        print(json.dumps(depth_prior_reference(192, 256)))
+        return
     n_frames = args.frames or (300 if args.bench_sequence else 60)
 
     from deepfactors_tpu.geometry.camera import PinholeCamera
@@ -145,6 +178,18 @@ def main():
         loop_active_window=args.loop_active_window,
         loop_max_dist=args.loop_max_dist,
         pipeline_depth=args.pipeline_depth)
+    if args.flagfile:
+        from deepfactors_tpu.config import build_system_config, parse_args
+
+        cfg = build_system_config(parse_args(
+            [f"--flagfile={args.flagfile}"] + [f"--{kv}" for kv in args.set]),
+            H, W)
+        mc = cfg.mapper
+        cfg = cfg._replace(mapper=mc._replace(
+            max_geo_factors=mc.max_keyframes * mc.max_back_connections + 16),
+            pipeline_depth=args.pipeline_depth)
+        args.loop_closure = cfg.loop_closure
+        args.use_reprojection = cfg.mapper.use_reprojection
     if df is None:
         df = DeepFactors(cfg, cam, decoder=decoder,
                          vocabulary=default_vocabulary() if args.loop_closure
@@ -249,10 +294,79 @@ def main():
         "verifications": verifications,
         "n_rep_factors_live": int(df.mapper.rep_pool.active.sum())
         if args.use_reprojection else 0,
+        "flagfile": args.flagfile,
+        "flag_overrides": args.set,
+        "use_geometric": df.cfg.mapper.use_geometric,
+        "n_geo_factors_live": int(df.mapper.geo_pool.active.sum())
+        if df.cfg.mapper.use_geometric else 0,
         "cpu_wall_s": wall,
         "cpu_prewarm_s": prewarm_s,
         "platform": jax.devices()[0].platform,
     }))
+
+
+def depth_prior_reference(H, W):
+    """tests/test_mapper.py:174's scenario at H x W, twice: mapped until the
+    work queue drains (the mean absolute error of keyframe 0's decoded
+    level-0 depth to the prior's target before and after, the mapping
+    steps, the codes), and with pho_iters (0, 0), so that each mapping step
+    is one GN iteration: the error after the first one and the ratio of the
+    error before to it (mapped to the end, the error falls to fp32
+    round-off, 0 to 5e-7, whose ratio measures nothing)."""
+    full = _depth_prior_run(H, W, (6, 6))
+    one = _depth_prior_run(H, W, (0, 0), max_steps=1)
+    return dict(height=H, width=W, err_before=full["before"],
+                err_after=full["after"], steps=full["steps"],
+                code=full["code"], err_after_one_iteration=one["after"],
+                factor_one_iteration=one["before"] / one["after"])
+
+
+def _depth_prior_run(H, W, pho_iters, max_steps=None):
+    import jax.numpy as jnp
+
+    from deepfactors_tpu.geometry import se3 as se3m
+    from deepfactors_tpu.geometry.camera import PinholeCamera
+    from deepfactors_tpu.mapping.mapper import Mapper, MapperConfig
+    from deepfactors_tpu.ops import image as ip
+
+    target_dpt, CS2 = 2.5, 2
+    cfg = MapperConfig(
+        max_keyframes=2, max_frames=1, max_factors=4, code_size=CS2,
+        height=H, width=W, pyramid_levels=2, pho_iters=pho_iters,
+        huber_delta=0.3, connection_mode="LASTN", max_back_connections=1,
+        lm_lambda=1e-4, use_schur=False, use_depth_prior=True,
+        dpt_prior_sigma=0.05, code_prior=100.0)
+    cam = PinholeCamera.create(fx=60.0, fy=60.0, u0=W / 2, v0=H / 2,
+                               width=W, height=H)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    img = jnp.asarray(0.5 + 0.2 * np.sin(xs / 5) * np.cos(ys / 4))
+    m = Mapper(cfg, cam, decoder=None)
+    img_pyr = ip.build_pyramid(img, 2)
+    grad_pyr = ip.build_gradient_pyramid(img_pyr)
+    prx0 = tuple(jnp.full_like(im, 0.5) for im in img_pyr)
+    jac = tuple(jnp.stack([jnp.full_like(im, 0.1), jnp.zeros_like(im)],
+                          axis=-1) for im in img_pyr)
+    stdev = tuple(jnp.zeros_like(im) for im in img_pyr)
+    pyramids = (img_pyr, grad_pyr, prx0, jac, stdev,
+                jnp.zeros((CS2,), jnp.float32), None)
+    p0 = se3m.identity()
+    s0 = m.add_keyframe_to_map(img, p0, pyramids=pyramids)
+    s1 = m.add_keyframe_to_map(img, p0, pyramids=pyramids)
+    m._anchor_pose = p0
+    m._add_photo_pair(s0, s1)
+    target = np.full((H, W), target_dpt, np.float32)
+    m.set_depth_prior(s0, target)
+    m.set_depth_prior(s1, target)
+    err = lambda: float(np.mean(np.abs(np.asarray(m.state.levels[0].dpt[s0])
+                                       - target)))
+    before = err()
+    steps = 0
+    while m.has_work() and (max_steps is None or steps < max_steps):
+        m.mapping_step()
+        steps += 1
+    m.update_map()
+    return dict(before=before, after=err(), steps=steps,
+                code=np.asarray(m.state.code).tolist())
 
 
 if __name__ == "__main__":

@@ -47,11 +47,12 @@ def test_port_and_chip_smoke_import_without_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     seen = r.stdout.strip().splitlines()[-1].split()
-    assert len(seen) >= 34                                # every module seen
+    assert len(seen) >= 36                                # every module seen
     for mod in ("ops.kernels.dense_warp", "ops.kernels.sfm_error",
                 "parallel.dist_ba", "parallel.large_map",
                 "parallel.multi_seq", "parallel.dryrun",
-                "loop.vocabulary", "loop.loop_detector"):
+                "loop.vocabulary", "loop.loop_detector",
+                "features.sampler", "config"):
         assert "deepfactors_tpu_torch." + mod in seen, mod
 
 

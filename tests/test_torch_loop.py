@@ -25,7 +25,11 @@ What must agree, with the tolerances:
     and archived pose, the verified pose within 1e-4, every candidate row
     of the verification within the tolerances above, padded to
     ``max_candidates`` by candidate 0 in both, and the temporal guard on
-    recently archived keyframes;
+    recently archived keyframes. The live and archived hits query the
+    keyframe's view moved by a known sub-pixel offset (``QUERY_SHIFT``):
+    an exact revisit verifies to the identity up to round-off and puts
+    whole rows of correspondences on the validity test's bound, where
+    the rounding of the pose decides the inlier count;
   - the frame step's probe with ``with_loop=True``: BoW similarities
     within 1e-6 (the frame's keypoints identical), the rest as the
     facade tests hold it."""
@@ -65,6 +69,12 @@ ERR_ATOL = 1e-9     # an exact match leaves a residual of round-off, ~1e-14
 BOW_TOL = 1e-7
 SIM_TOL = 1e-6
 SHARE_TOL = 1e-6
+# The detection tests query a view moved by a known sub-pixel offset (px),
+# so that every correspondence at the verified pose lies at least
+# BOUND_MARGIN px from the validity test's bound: an exact revisit puts
+# whole rows on it (test_exact_revisit_lies_on_the_validity_bound).
+QUERY_SHIFT = (0.45, 0.3)
+BOUND_MARGIN = 0.05
 VOC_PATH = os.path.join(os.path.dirname(__file__), "..", "data",
                         "voc_room256.npz")
 CAM = dict(fx=80.0, fy=80.0, u0=W / 2, v0=H / 2, width=W, height=H)
@@ -351,24 +361,81 @@ def test_detect_local_loop_matches_jax():
     assert st == -1 and sj == -1            # 9 m away: nothing near enough
 
 
+def _shifted(img, dx=QUERY_SHIFT[0], dy=QUERY_SHIFT[1]):
+    """img resampled bilinearly at (x + dx, y + dy), the last row and column
+    clamped: the view of a camera moved by a known sub-pixel offset over the
+    keyframes' fronto-parallel plane (their depth is 2 everywhere)."""
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+    x, y = np.clip(xs + dx, 0, W - 1), np.clip(ys + dy, 0, H - 1)
+    x0 = np.minimum(np.floor(x).astype(int), W - 2)
+    y0 = np.minimum(np.floor(y).astype(int), H - 2)
+    ax, ay = x - x0, y - y0
+    out = ((1 - ay) * ((1 - ax) * img[y0, x0] + ax * img[y0, x0 + 1])
+           + ay * ((1 - ax) * img[y0 + 1, x0] + ax * img[y0 + 1, x0 + 1]))
+    return out.astype(np.float32)
+
+
+def _bound_margins(packed, dpt):
+    """Distance in pixels, over every pixel of a candidate's level-0 depth
+    dpt [H, W], from its correspondence at each verified pose (the rows of
+    packed [C, 9]) to the nearest edge of the validity test (border 1), as
+    each package computes the correspondence: [2, C]."""
+    from deepfactors_tpu.geometry import warping as jwarp
+    from deepfactors_tpu_torch.geometry import warping as twarp
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    pix0 = np.stack([xs, ys], -1)
+    out = np.zeros((2, len(packed)))
+    for c, row in enumerate(packed):
+        q, t = row[:4].astype(np.float32), row[4:7].astype(np.float32)
+        pj = np.asarray(jwarp.find_correspondence(
+            jnp.asarray(pix0), jnp.asarray(dpt), JCam.create(**CAM),
+            JSE3(jnp.asarray(q), jnp.asarray(t))).pix1)
+        pt = twarp.find_correspondence(
+            torch.from_numpy(pix0), torch.from_numpy(dpt), TCam.create(**CAM),
+            TSE3(torch.from_numpy(q), torch.from_numpy(t))).pix1.numpy()
+        for k, p in enumerate((pj, pt)):
+            out[k, c] = min(np.abs(p[..., 0][..., None] - [1.0, W - 1.0]).min(),
+                            np.abs(p[..., 1][..., None] - [1.0, H - 1.0]).min())
+    return out
+
+
 def test_detect_loop_live_hit_padded_batch():
-    """Scene 1 again: matches keyframe slot 0 outside the window of one.
-    The verification batch is padded to max_candidates (10) by candidate 0
-    in both packages."""
+    """Scene 1 seen again from a camera moved by QUERY_SHIFT: matches
+    keyframe slot 0 outside the window of one. The verification batch is
+    padded to max_candidates (10) by candidate 0 in both packages."""
     m, jd, td, imgs = _detectors(archive_cap=4)
-    rj, rt, vj, vt = _detect_both(m, jd, td, imgs[0])
+    rj, rt, vj, vt = _detect_both(m, jd, td, _shifted(imgs[0]))
     assert rj.detected and rj.slot == m.kf_slots[0]
     _assert_results_equal(rt, rj)
     assert len(vj) == len(vt) == 1
     assert vt[0].shape == vj[0].shape == (10, 9)
+    dpt0 = np.array(m.state.levels[0].dpt[m.kf_slots[0]])
+    assert _bound_margins(vj[0][:1], dpt0).min() > BOUND_MARGIN
     _assert_packed_close(vt[0], vj[0])
     np.testing.assert_array_equal(vt[0][-1], vt[0][0])   # padding = cand 0
     assert float(np.linalg.norm(rt.pose_cand_cur.t.numpy())) < 0.05
 
 
+def test_exact_revisit_lies_on_the_validity_bound():
+    """Why the two detection tests query a shifted view: the view keyframe
+    slot 0 was built from verifies to the identity up to round-off, and then
+    every correspondence of the last row and column lies within round-off
+    of the validity test's bound (under 1e-4 px here), in both packages:
+    which side each falls on is decided by the rounding of the pose, so
+    the inlier counts of the two packages may part by whole pixels."""
+    m, jd, td, imgs = _detectors(archive_cap=4)
+    rj, rt, vj, vt = _detect_both(m, jd, td, imgs[0])
+    assert rj.detected and rt.detected
+    dpt0 = np.array(m.state.levels[0].dpt[m.kf_slots[0]])
+    margins = np.concatenate([_bound_margins(vj[0][:1], dpt0),
+                              _bound_margins(vt[0][:1], dpt0)])
+    assert margins.max() < 1e-4
+
+
 def test_detect_loop_archived_hit():
-    """Keyframe 0 archived (as an eviction would), then queried: the
-    archive row matches, with its world pose."""
+    """Keyframe 0 archived (as an eviction would), then queried from a
+    camera moved by QUERY_SHIFT: the archive row matches, with its world
+    pose."""
     m, jd, td, imgs = _detectors(archive_cap=4)
     s0 = m.kf_slots[0]
     aj = jd.archive_keyframe(s0, kf_id=0, state=m.state)
@@ -378,9 +445,12 @@ def test_detect_loop_archived_hit():
     for k, v in tld.loop_detector_to_numpy(jd).items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)
     assert not got["db_valid"][s0] and got["db_valid"][6]
-    rj, rt, vj, vt = _detect_both(m, jd, td, imgs[0], next_kid=100)
+    rj, rt, vj, vt = _detect_both(m, jd, td, _shifted(imgs[0]),
+                                  next_kid=100)
     assert rj.detected and rj.slot == -1 and rj.archived_idx == 0
     _assert_results_equal(rt, rj)
+    dpt0 = np.array(m.state.levels[0].dpt[s0])
+    assert _bound_margins(vj[0][:1], dpt0).min() > BOUND_MARGIN
     _assert_packed_close(vt[0], vj[0])
 
 

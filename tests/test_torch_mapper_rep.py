@@ -81,24 +81,43 @@ def strip_pose(SE, i):
 
 
 class JaxKeyChain:
-    """A ``ransac_draw`` hook that replays the JAX mapper's RANSAC draws:
-    its key chain starts at PRNGKey(42) and splits once per keyframe event
-    that matches; the event's key splits into one key per direction, and
-    each direction draws ``categorical`` over logits 0 (valid match) or
-    -1e9 (deepfactors_tpu/mapping/mapper.py ``_rep_pair_fn``)."""
+    """The JAX mapper's key chain, replayed for both of the port mapper's
+    draw hooks: ``ransac_draw`` (the instance itself) and ``geo_draw``
+    (its ``geo`` method). The chain starts at PRNGKey(42) and splits once
+    per draw, in the order the JAX mapper draws
+    (deepfactors_tpu/mapping/mapper.py ``_next_key``): at a keyframe event
+    the RANSAC draw of all back-connections first, then one geometric
+    sample per connection, then the stochastic resamples in bookkeeping
+    order. The port's mapper calls its hooks in that order, so one chain
+    serves both. A RANSAC draw splits its key into one key per direction,
+    and each direction draws ``categorical`` over logits 0 (valid match) or
+    -1e9 (``_rep_pair_fn``); a geometric draw is
+    ``features/sampler.sample_uniform_pixels`` of its key."""
 
     def __init__(self):
         self.key = jax.random.PRNGKey(42)
         self.calls = 0
+        self.geo_calls = 0
+
+    def _next_key(self):
+        self.key, k = jax.random.split(self.key)
+        return k
 
     def __call__(self, valids, iterations):
         self.calls += 1
-        self.key, k = jax.random.split(self.key)
+        k = self._next_key()
         v = np.asarray(valids.cpu())
         ks = jax.random.split(k, v.shape[0])
         return np.stack([np.asarray(jax.random.categorical(
             ks[d], jnp.where(jnp.asarray(v[d]), 0.0, -1e9),
             shape=(iterations, 8))) for d in range(v.shape[0])])
+
+    def geo(self, n, width, height):
+        from deepfactors_tpu.features.sampler import sample_uniform_pixels
+
+        self.geo_calls += 1
+        return np.asarray(sample_uniform_pixels(self._next_key(), n, width,
+                                                height))
 
 
 def config(MC):
@@ -355,11 +374,27 @@ def test_enqueue_link_matches_jax(kind):
 
 
 def test_enqueue_link_geometric_raises():
-    tm = TMapper(config(TMC), TCam.create(fx=FX, fy=FX, u0=W / 2, v0=H / 2,
-                                          width=W, height=H),
-                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.enqueue_link(0, 1, photo=False, geo=True)
+    """``enqueue_link(geo=True)`` raised while the geometric factor was not
+    ported; now it does what the JAX mapper does: with geometric factors
+    off it adds no work, with them on one geometric work slot0 -> slot1 on
+    points from the key chain's draw (the same points as JAX's). The geo
+    link in a mapping run is held against JAX in
+    tests/test_torch_mapper_geo.py."""
+    kw = dict(fx=FX, fy=FX, u0=W / 2, v0=H / 2, width=W, height=H)
+    for use_geo in (False, True):
+        tm = TMapper(config(TMC)._replace(use_geometric=use_geo),
+                     TCam.create(**kw), device="cpu")
+        tm.geo_draw = JaxKeyChain().geo
+        jm = JMapper(config(JMC)._replace(use_geometric=use_geo),
+                     JCam.create(**kw))
+        for m in (tm, jm):
+            m.enqueue_link(0, 1, photo=False, geo=True)
+        names = [w.name for w in tm.work.work]
+        assert names == [w.name for w in jm.work.work]
+        assert names == (["geo 0->1"] if use_geo else [])
+        if use_geo:
+            np.testing.assert_array_equal(tm.work.work[0].points,
+                                          np.asarray(jm.work.work[0].points))
 
 
 def test_add_loop_prior_matches_jax():
