@@ -191,12 +191,16 @@ def build_system_config(flags: dict, height: int, width: int) -> SystemConfig:
 
 def load_network_config(path: str):
     """JSON network config (LoadJsonNetworkConfig,
-    decoder_network.cpp:231-325) -> the decoder's ``NetworkConfig``."""
+    decoder_network.cpp:231-325) -> the decoder's ``NetworkConfig``, its
+    architecture (``base_ch``, ``pred_head``) included. The trained
+    intrinsics are read from a ``"camera"`` object, as the reference reads
+    them; the shipped networks hold none, so ``fx`` is 0 for them."""
     from .models.decoder import NetworkConfig
 
     with open(path) as f:
         j = json.load(f)
     cam = j.get("camera", {})
+    default = NetworkConfig()
     return NetworkConfig(
         code_size=j.get("code_size", 32),
         pyramid_levels=j.get("pyramid_levels", 4),
@@ -208,6 +212,8 @@ def load_network_config(path: str):
         u0=cam.get("u0", 0.0),
         v0=cam.get("v0", 0.0),
         grayscale=j.get("grayscale", True),
+        base_ch=j.get("base_ch", default.base_ch),
+        pred_head=j.get("pred_head", default.pred_head),
     )
 
 

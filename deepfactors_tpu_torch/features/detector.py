@@ -226,7 +226,7 @@ def detect_pyramid(img_pyr, cfg: DetectorConfig = DetectorConfig()) -> Features:
 # Carrying keypoints across from numpy (the JAX package's host arrays)
 # ----------------------------------------------------------------------------
 
-def features_from_numpy(f, device="cpu"):
+def features_from_numpy(f, device="cuda"):
     """A keypoint set or a reprojection-factor pool given as numpy arrays
     (the JAX package's ``Features`` after ``np.asarray``, with ``uint32``
     descriptors, or its host ``RepPool``) -> the port's: ``Features`` of

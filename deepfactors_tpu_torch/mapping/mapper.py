@@ -56,7 +56,8 @@ Loop closure adds factors through ``enqueue_link`` (a photometric,
 reprojection or geometric link between two live keyframes) and
 ``add_loop_prior`` (an absolute pose prior in the marginal store).
 
-The native scheduler backend is not ported (``make_scheduler`` raises).
+``use_native_scheduler`` runs the work schedule on the native C++ backend
+(``scheduler.NativeBackend``) in place of the Python one.
 """
 from __future__ import annotations
 
@@ -89,7 +90,7 @@ from . import frames as fr
 from . import map_state as ms
 from . import marginal as mg
 from .mapper_pools import FactorPool, GeoPool
-from .scheduler import make_scheduler
+from .scheduler import PyScheduler, make_scheduler
 
 Tensor = torch.Tensor
 
@@ -147,7 +148,7 @@ class MapperConfig(NamedTuple):
     # depth_prior_factor.cpp:83-123)
     use_depth_prior: bool = False
     dpt_prior_sigma: float = 1.0
-    # the native C++ scheduler backend is not ported (make_scheduler raises)
+    # the C++ scheduler backend (native/scheduler.cpp, built at first use)
     use_native_scheduler: bool = False
 
 
@@ -1286,7 +1287,10 @@ class Mapper:
                 "code_norm": round(float(code_n[s]), 4),
                 "has_marginal_prior": bool(marg[s]),
             })
-        for w in self.sched.wm.work:
+        # the native backend keeps its work list in C++
+        works = self.sched.wm.work if isinstance(self.sched, PyScheduler) \
+            else ()
+        for w in works:
             out["works"].append({
                 "name": w.name, "level": w.active_level,
                 "iters": list(w.iters), "first": w.first,

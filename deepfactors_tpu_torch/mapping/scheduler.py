@@ -1,10 +1,12 @@
-"""Work scheduling for the Mapper (Python backend).
+"""Work scheduling for the Mapper: a Python backend and the native C++ one.
 
 Own copy of the reference-semantics scheduler of
 ``deepfactors_tpu/mapping/scheduler.py`` and the Work classes of
 ``deepfactors_tpu/mapping/mapper.py`` (df_work.cpp:99-249, 316-347,
 work_manager.cpp:25-143), with photometric, reprojection and geometric
-works. The native C++ backend is not ported.
+works. ``make_scheduler`` returns the C++ backend (native/scheduler.cpp,
+through ``deepfactors_tpu_torch.native``) when the config sets
+``use_native_scheduler``, else the Python one.
 """
 from __future__ import annotations
 
@@ -341,9 +343,111 @@ class PyScheduler:
         self.wm.sweep_finished()
 
 
+class NativeBackend:
+    """C++ scheduler backend (native/scheduler.cpp): the work list and the
+    pools' (src, dst, level, active) live in C++ and are mirrored into the
+    host pools after each bookkeeping; a reprojection or geometric work's
+    payload waits here until its work owns a pool slot. Works are integer
+    ids (``add_photo`` returns one; ``add_geo``'s ``parent`` takes one).
+    As in the JAX package, ``bookkeeping`` does not resample geometric
+    points (``stochastic_geo_resample`` is ignored)."""
+
+    def __init__(self, cfg):
+        from .. import native
+
+        self.cfg = cfg
+        self.native = native
+        self.repgeo_version = 0
+        self.ns = native.NativeScheduler(
+            cfg.max_factors, cfg.max_rep_factors, cfg.max_geo_factors)
+        self.photo_pool = _empty_pool(cfg.max_factors)
+        self.rep_pool = _empty_rep_pool(cfg.max_rep_factors, cfg.max_keypoints)
+        self.geo_pool = _empty_geo_pool(cfg.max_geo_factors, cfg.geo_npoints)
+        # payloads waiting for slot placement: work_id -> payload
+        self._rep_payloads: dict = {}
+        self._geo_payloads: dict = {}
+
+    def add_photo(self, src, dst, dst_is_frame, iters, remove_after=False,
+                  replace=False):
+        if replace and not dst_is_frame:
+            self.ns.replace_pair(self.native.PHOTO, src, dst)
+        return self.ns.add_work(self.native.PHOTO, src, dst, dst_is_frame,
+                                list(iters), remove_after)
+
+    def add_rep(self, src, dst, iters, kp0, kp1, mvalid):
+        self.repgeo_version += 1
+        self.ns.replace_pair(self.native.REP, src, dst)
+        wid = self.ns.add_work(self.native.REP, src, dst, False, [iters])
+        self._rep_payloads[wid] = (kp0, kp1, mvalid)
+        return wid
+
+    def add_geo(self, src, dst, iters, points, parent=None):
+        self.repgeo_version += 1
+        wid = self.ns.add_work(self.native.GEO, src, dst, False, [iters],
+                               parent=parent if isinstance(parent, int) else 0)
+        self._geo_payloads[wid] = points
+        return wid
+
+    def erase_frame(self, fslot: int):
+        self.repgeo_version += 1
+        self.ns.erase_frame(fslot)
+
+    def erase_keyframe(self, slot: int):
+        self.repgeo_version += 1
+        self.ns.erase_keyframe(slot)
+
+    def bookkeeping(self, stochastic_geo_resample=None):
+        self.ns.bookkeeping()
+        for kind, pool in ((self.native.PHOTO, self.photo_pool),
+                           (self.native.REP, self.rep_pool),
+                           (self.native.GEO, self.geo_pool)):
+            src, dst, level, isf, act = self.ns.pool(kind)
+            pool.src[:] = src
+            pool.dst[:] = dst
+            if hasattr(pool, "level"):
+                pool.level[:] = level
+            if hasattr(pool, "dst_is_frame"):
+                pool.dst_is_frame[:] = isf
+            pool.active[:] = act
+        # place the payloads whose works now own slots
+        for wid in list(self._rep_payloads):
+            slot = self.ns.work_slot(wid)
+            if slot >= 0:
+                self.repgeo_version += 1
+                kp0, kp1, mvalid = self._rep_payloads.pop(wid)
+                M = kp0.shape[0]
+                self.rep_pool.kp0[slot, :M] = kp0
+                self.rep_pool.kp1[slot, :M] = kp1
+                self.rep_pool.mvalid[slot] = False
+                self.rep_pool.mvalid[slot, :M] = mvalid
+        for wid in list(self._geo_payloads):
+            slot = self.ns.work_slot(wid)
+            if slot >= 0:
+                self.repgeo_version += 1
+                self.geo_pool.points[slot] = self._geo_payloads.pop(wid)
+
+    def budget(self) -> int:
+        return self.ns.budget()
+
+    def update(self, iters_done: int, converged: bool):
+        self.ns.update(iters_done, converged)
+
+    def has_work(self) -> bool:
+        return self.ns.has_work()
+
+    def fused_sig(self):
+        return self.ns.fused_sig()
+
+    def descent_slots(self) -> np.ndarray:
+        return self.ns.descent_slots()
+
+    def tick_empty(self):
+        self.ns.update(1, False)
+
+
 def make_scheduler(cfg):
+    """The native backend when ``cfg.use_native_scheduler`` (its library
+    builds at first use and a failed build raises), else the Python one."""
     if getattr(cfg, "use_native_scheduler", False):
-        raise NotImplementedError(
-            "the native C++ scheduler backend comes with a later slice of "
-            "the port; use the Python scheduler")
+        return NativeBackend(cfg)
     return PyScheduler(cfg)

@@ -274,13 +274,7 @@ class Decoder:
 def load_decoder(prefix: str, device="cuda") -> Decoder:
     """Decoder from ``<prefix>.json`` + ``<prefix>.pkl`` (e.g.
     data/nets/room256_32v4)."""
-    import json
+    from ..config import load_network_config
 
-    with open(prefix + ".json") as f:
-        nj = json.load(f)
-    cfg = NetworkConfig(
-        code_size=nj["code_size"], pyramid_levels=nj["pyramid_levels"],
-        input_width=nj["input_width"], input_height=nj["input_height"],
-        avg_dpt=nj["avg_dpt"], base_ch=nj.get("base_ch", 32),
-        pred_head=nj.get("pred_head", "gap"))
-    return Decoder(cfg, params=load_params(prefix + ".pkl"), device=device)
+    return Decoder(load_network_config(prefix + ".json"),
+                   params=load_params(prefix + ".pkl"), device=device)

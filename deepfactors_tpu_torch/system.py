@@ -38,11 +38,14 @@ gives those reads; on the CPU the frame is computed eagerly at dispatch.
 Both hold only while all of the facade's work stays on the current stream
 and nothing reads a pool on the host between a dispatch and its retire.
 
-The I/O drivers (resizing, undistortion) come with a later slice; a frame
-of another size raises ``NotImplementedError``.
+Frames of another size than the network's are resized, or, after
+``set_source_camera``, undistorted and remapped to the trained camera, on
+the host (``io/preprocess.py``). ``save_results`` writes the run's results
+in the JAX package's files and formats (``io/image_io.py`` for the PNGs).
 """
 from __future__ import annotations
 
+import os
 from collections import deque
 from typing import NamedTuple, Optional
 
@@ -55,11 +58,15 @@ from .features import detector as det
 from .geometry import se3 as se3m
 from .geometry.camera import PinholeCamera
 from .geometry.se3 import SE3
+from .io import image_io
+from .io import preprocess as pp
+from .io.preprocess import to_gray_float
 from .loop.loop_detector import LoopConfig, LoopDetector, _make_verify_fn
 from .mapping.mapper import Mapper, MapperConfig
 from .ops import image as ip
 from .ops.kernels import build
 from .tracking.tracker import CameraTracker, TrackerConfig
+from .utils import tum_io
 from .utils.timing import tic, toc
 
 Tensor = torch.Tensor
@@ -162,17 +169,6 @@ def _host_pose_distance(pa: SE3, pb: SE3) -> float:
         wv = qr[1:] / nv * ang
         drot = float(np.linalg.norm(wv[:2]))   # roll ignored
     return 8.0 * float(np.linalg.norm(t_rel)) + 3.0 * drot
-
-
-def to_gray_float(img) -> np.ndarray:
-    """BGR/RGB uint8 or float image -> grayscale float32 in [0, 1]
-    (deepfactors.cpp:648-655)."""
-    img = np.asarray(img)
-    if img.dtype == np.uint8:
-        img = img.astype(np.float32) / 255.0
-    if img.ndim == 3:
-        img = img @ np.asarray([0.114, 0.587, 0.299], np.float32)  # BGR
-    return img.astype(np.float32)
 
 
 class DeepFactors:
@@ -630,15 +626,27 @@ class DeepFactors:
                                   se3m.index(st.pose, slot))
         self._protect(slot)
 
+    def set_source_camera(self, src: pp.SourceCamera) -> None:
+        """Declare the raw camera (``io.preprocess.SourceCamera``): frames
+        are then undistorted and remapped to this system's trained camera in
+        ``preprocess_image``; the reference builds this map once in Init
+        (deepfactors.cpp:634-646)."""
+        self._remap = pp.build_remap(
+            src, float(self.cam.fx), float(self.cam.fy),
+            float(self.cam.u0), float(self.cam.v0),
+            self.cfg.mapper.width, self.cfg.mapper.height)
+
     def preprocess_image(self, img) -> np.ndarray:
         """PreprocessImage (deepfactors.cpp:634-680): grayscale float in
-        [0, 1] at the configured size."""
+        [0, 1], remapped to the trained camera when a source camera was
+        declared (``set_source_camera``), else resized to the configured
+        size. Host numpy."""
         img = to_gray_float(img)
         H, W = self.cfg.mapper.height, self.cfg.mapper.width
-        if img.shape != (H, W):
-            raise NotImplementedError(
-                f"frame is {img.shape}, the system runs at {(H, W)}: resizing "
-                "and undistortion come with the I/O slice of the port")
+        if getattr(self, "_remap", None) is not None:
+            img = pp.remap_bilinear(img, *self._remap)
+        elif img.shape != (H, W):
+            img = pp.resize_bilinear(img, W, H)
         return img
 
     # ------------------------------------------------------------------
@@ -957,6 +965,51 @@ class DeepFactors:
         """The next frame to retire that builds no keyframe becomes a
         one-way frame."""
         self.force_frame_flag = True
+
+    # ------------------------------------------------------------------
+    # results on disk (deepfactors.cpp:541-594)
+    # ------------------------------------------------------------------
+
+    def save_results(self, dir_path: str):
+        """SaveResults (deepfactors.cpp:574-594): the TUM trajectory of the
+        tracked frames (``trajectory.txt``), every keyframe's final pose,
+        evicted ones included (``keyframes.txt``), and ``save_keyframes``.
+        Call after ``flush()`` in pipelined mode."""
+        os.makedirs(dir_path, exist_ok=True)
+        tum_io.save_trajectory(os.path.join(dir_path, "trajectory.txt"),
+                               self.trajectory)
+        kf_poses = [(float(a["id"]), SE3(a["q"], a["t"]))
+                    for a in self.mapper.archived]
+        st = self.mapper.state
+        ids = st.ids.cpu().numpy()
+        q, t = st.pose.q.cpu().numpy(), st.pose.t.cpu().numpy()
+        kf_poses += [(float(ids[s]), SE3(q[s], t[s]))
+                     for s in self.mapper.kf_slots]
+        kf_poses.sort(key=lambda x: x[0])
+        tum_io.save_trajectory(os.path.join(dir_path, "keyframes.txt"),
+                               kf_poses)
+        self.save_keyframes(dir_path)
+
+    def save_keyframes(self, dir_path: str):
+        """SaveKeyframes (deepfactors.cpp:541-570): per live keyframe its
+        level-0 image (``kf_<id>_img.png``, u8) and depth
+        (``kf_<id>_dpt.png``, u16 x5000), and ``intrinsics.txt``."""
+        os.makedirs(dir_path, exist_ok=True)
+        st = self.mapper.state
+        act, ids = st.active.cpu().numpy(), st.ids.cpu().numpy()
+        for s in self.mapper.kf_slots:
+            if not act[s]:
+                continue
+            img = st.levels[0].img[s].cpu().numpy()
+            dpt = st.levels[0].dpt[s].cpu().numpy()
+            kid = int(ids[s])
+            image_io.imwrite(os.path.join(dir_path, f"kf_{kid}_img.png"),
+                             (img * 255).astype(np.uint8))
+            image_io.imwrite(os.path.join(dir_path, f"kf_{kid}_dpt.png"),
+                             (dpt * 5000).astype(np.uint16))
+        with open(os.path.join(dir_path, "intrinsics.txt"), "w") as f:
+            f.write(f"{float(self.cam.fx)} {float(self.cam.fy)} "
+                    f"{float(self.cam.u0)} {float(self.cam.v0)}\n")
 
     def prewarm(self):
         """First calls of every per-frame and per-event path, before the

@@ -32,6 +32,22 @@ def toc(name: str):
         print(f"[timing] {name}: {dt * 1000:.2f} ms")
 
 
+def measure_time(name: str):
+    """Decorator equivalent of MeasureTime (timing.h:28-45): ``tic`` /
+    ``toc`` around every call."""
+
+    def wrap(fn):
+        def inner(*a, **kw):
+            tic(name)
+            out = fn(*a, **kw)
+            toc(name)
+            return out
+
+        return inner
+
+    return wrap
+
+
 def timing_summary() -> dict:
     return {
         k: {"total_s": _totals[k], "count": _counts[k],

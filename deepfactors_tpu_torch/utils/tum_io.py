@@ -7,6 +7,9 @@ arrays or tensors (on any device).
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..geometry.se3 import SE3
 
 
 def _np(x) -> np.ndarray:
@@ -22,6 +25,22 @@ def save_trajectory(path: str, trajectory):
             t, q = _np(pose.t), _np(pose.q)  # q wxyz
             f.write(f"{ts:.6f} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
                     f"{q[1]:.6f} {q[2]:.6f} {q[3]:.6f} {q[0]:.6f}\n")
+
+
+def load_trajectory(path: str):
+    """A TUM trajectory file -> list of (timestamp, SE3) with float32 CPU
+    tensors (q wxyz)."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            ts, tx, ty, tz, qx, qy, qz, qw = (float(x)
+                                              for x in line.split()[:8])
+            out.append((ts, SE3(torch.tensor([qw, qx, qy, qz]),
+                                torch.tensor([tx, ty, tz]))))
+    return out
 
 
 def ate_rmse(est, gt, align_scale: bool = False) -> float:

@@ -21,6 +21,13 @@ With ``--port-run`` the port's own facade also runs the row on the CPU up
 to the same frame with JAX's draws replayed, and its keypoints of the
 event are compared with JAX's.
 
+With ``--demo-source URL --frame-limit N`` the run is the demo entry's in
+``chip_smoke.py`` phase 10's configuration (``DEMO_FLAGS``) in place of
+the bench row: ``df_demo.py`` through ``port_tools/jax_demo_reference.py``
+on JAX's side, ``deepfactors_tpu_torch.demo.run`` with JAX's draws
+replayed on the port's (with ``--port-run``); the event replayed is the
+last of the first N processed frames.
+
 For each direction it prints the matches, the inliers each way keeps, the
 hypothesis each package picked (its index, how many distinct matches it
 draws, its count, its singular-value ratio, its count in float64), the number of well-posed hypotheses, the
@@ -31,6 +38,8 @@ Run on the CPU from the repository root (about 2 minutes; 3 with
 ``--port-run``):
     JAX_PLATFORMS=cpu python port_tools/ransac_replay.py --frame 21 \\
         [--port-run]
+    JAX_PLATFORMS=cpu python port_tools/ransac_replay.py --port-run \\
+        --demo-source tum://build/demo_tum --frame-limit 11
 Prints one JSON line.
 """
 import argparse
@@ -104,6 +113,84 @@ def jax_event(scene_seed, frame):
     return cam, calls[-1], df.mapper.cfg
 
 
+def _demo_argv(source, frame_limit):
+    import chip_smoke as cs
+    return [*cs.DEMO_FLAGS, "--source", source, "--frame_limit",
+            str(frame_limit)]
+
+
+def jax_demo_event(source, frame_limit):
+    """``df_demo.py`` (through jax_demo_reference.py) on ``source`` for
+    ``frame_limit`` frames: the inputs of its last match + RANSAC call."""
+    import tempfile
+
+    import jax_demo_reference
+
+    calls, mappers = [], []
+
+    def hook(df):
+        m = df.mapper
+        pairs = m._rep_pair_fn()
+        mappers.append(m)
+
+        def recorded(kp_xy, kp_desc, kp_valid, ias, ibs, key, n):
+            out = pairs(kp_xy, kp_desc, kp_valid, ias, ibs, key, n)
+            calls.append(dict(
+                kp_xy=np.asarray(kp_xy), kp_desc=np.asarray(kp_desc),
+                kp_valid=np.asarray(kp_valid), ias=np.asarray(ias).tolist(),
+                ibs=np.asarray(ibs).tolist(), key=key,
+                packed=np.asarray(out)))
+            return out
+
+        m._rep_pair_jit = recorded
+
+    with tempfile.TemporaryDirectory() as d:
+        jax_demo_reference.run(_demo_argv(source, frame_limit)
+                               + ["--log_dir", d], quiet=True,
+                               on_system=hook)
+    m = mappers[-1]
+    return m.cam, calls[-1], m.cfg
+
+
+def port_demo_event(source, frame_limit):
+    """The port's demo on the CPU over the same source and frames, JAX's
+    draws replayed: the keypoint pools of its last match + RANSAC call."""
+    import tempfile
+
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_mapper_rep import JaxKeyChain
+    from deepfactors_tpu_torch import demo
+    from deepfactors_tpu_torch.mapping.mapper import Mapper
+
+    torch.set_num_threads(4)
+    rep_pairs, seen = Mapper._rep_pairs, []
+
+    def recorded(self, slot_pairs):
+        out = rep_pairs(self, slot_pairs)
+        st = self.state
+        seen.append(dict(kp_xy=st.kp_xy.numpy().copy(),
+                         kp_desc=st.kp_desc.numpy().copy(),
+                         kp_valid=st.kp_valid.numpy().copy(),
+                         pairs=[list(p) for p in slot_pairs],
+                         packed=out.numpy().copy()))
+        return out
+
+    def hook(df):
+        chain = JaxKeyChain()
+        df.mapper.ransac_draw, df.mapper.geo_draw = chain, chain.geo
+
+    Mapper._rep_pairs = recorded
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            demo.run(_demo_argv(source, frame_limit)
+                     + ["--device", "cpu", "--log_dir", d], on_system=hook,
+                     log=lambda m: None)
+    finally:
+        Mapper._rep_pairs = rep_pairs
+    return seen[-1]
+
+
 def port_event(scene_seed, frame):
     """The port's facade on the CPU over the same row and frames, JAX's
     draws replayed: the keypoint pools of its last match + RANSAC call."""
@@ -164,8 +251,9 @@ def replay(cam, call, cfg, port):
     from deepfactors_tpu_torch.features import matching as pm
     from deepfactors_tpu_torch.geometry.camera import PinholeCamera as PCam
 
-    pcam = PCam.create(fx=220.0, fy=220.0, u0=W / 2, v0=H / 2, width=W,
-                       height=H)
+    pcam = PCam.create(fx=float(cam.fx), fy=float(cam.fy),
+                       u0=float(cam.u0), v0=float(cam.v0),
+                       width=int(cam.width), height=int(cam.height))
     thr, iters = cfg.rep_ransac_threshold, cfg.rep_ransac_maxiters
     n = len(call["ias"])
     ks = jax.random.split(call["key"], 2 * n)
@@ -250,11 +338,23 @@ def main():
     ap.add_argument("--port-run", action="store_true",
                     help="also run the port's facade on the CPU to the same "
                          "frame and compare its keypoints with JAX's")
+    ap.add_argument("--demo-source", default=None,
+                    help="replay the demo entry's run on this source URL")
+    ap.add_argument("--frame-limit", type=int, default=11,
+                    help="with --demo-source: the frames processed")
     args = ap.parse_args()
-    cam, call, cfg = jax_event(args.scene_seed, args.frame)
-    port = port_event(args.scene_seed, args.frame) if args.port_run else None
-    res = dict(scene_seed=args.scene_seed, frame=args.frame,
-               pairs=list(zip(call["ias"], call["ibs"])))
+    if args.demo_source:
+        cam, call, cfg = jax_demo_event(args.demo_source, args.frame_limit)
+        port = (port_demo_event(args.demo_source, args.frame_limit)
+                if args.port_run else None)
+        res = dict(demo_source=args.demo_source,
+                   frame_limit=args.frame_limit)
+    else:
+        cam, call, cfg = jax_event(args.scene_seed, args.frame)
+        port = (port_event(args.scene_seed, args.frame) if args.port_run
+                else None)
+        res = dict(scene_seed=args.scene_seed, frame=args.frame)
+    res["pairs"] = list(zip(call["ias"], call["ibs"]))
     if port is not None:
         used = sorted({s for p in port["pairs"] for s in p})
         res["port_pairs"] = port["pairs"]

@@ -1,7 +1,8 @@
 """The port stands alone: no module of deepfactors_tpu_torch, and not
-chip_smoke.py, imports jax, flax or deepfactors_tpu; and on CPU tensors
-the kernel wrappers run their plain versions, so the launch counters stay
-at 0."""
+chip_smoke.py, imports jax, flax or deepfactors_tpu, and none loads the
+JAX package's native library (deepfactors_tpu/native_lib); and on CPU
+tensors the kernel wrappers run their plain versions, so the launch
+counters stay at 0."""
 import os
 import subprocess
 import sys
@@ -52,8 +53,52 @@ def test_port_and_chip_smoke_import_without_jax():
                 "parallel.dist_ba", "parallel.large_map",
                 "parallel.multi_seq", "parallel.dryrun",
                 "loop.vocabulary", "loop.loop_detector",
-                "features.sampler", "config"):
+                "features.sampler", "config", "io.preprocess",
+                "io.drivers", "io.image_io", "io.sequences", "demo", "native",
+                "viz", "utils.checkpoint", "utils.interp",
+                "utils.profiling"):
         assert "deepfactors_tpu_torch." + mod in seen, mod
+
+
+_NATIVE_PROBE = r"""
+import ctypes, sys
+loaded = []
+cdll = ctypes.CDLL
+class Recording(cdll):
+    def __init__(self, name, *a, **kw):
+        loaded.append(str(name))
+        super().__init__(name, *a, **kw)
+ctypes.CDLL = Recording
+from deepfactors_tpu_torch import native
+from deepfactors_tpu_torch.mapping.scheduler import make_scheduler
+from deepfactors_tpu_torch.mapping.mapper import MapperConfig
+make_scheduler(MapperConfig(use_native_scheduler=True))
+native.NativeScheduler(4, 2, 2)
+native._load("dataset_loader.cpp")
+assert not any(m.startswith("deepfactors_tpu.") for m in sys.modules), \
+    [m for m in sys.modules if m.startswith("deepfactors_tpu.")]
+print("\n".join(loaded))
+"""
+
+
+def test_native_runtime_is_the_ports_own():
+    """The port's native runtime builds and loads its own libraries (under
+    build/native) and never opens the JAX package's native_lib; no source
+    of the port names that directory."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", _NATIVE_PROBE], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    loaded = r.stdout.strip().splitlines()
+    ours = [p for p in loaded if os.path.join("build", "native") in p]
+    assert len(ours) == 2, loaded
+    assert not any("native_lib" in p for p in loaded), loaded
+    pkg = os.path.join(ROOT, "deepfactors_tpu_torch")
+    for d, _, fs in os.walk(pkg):
+        for f in fs:
+            if f.endswith(".py"):
+                with open(os.path.join(d, f)) as fh:
+                    assert "native_lib" not in fh.read(), f
 
 
 def test_no_source_file_names_jax():

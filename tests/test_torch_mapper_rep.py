@@ -276,7 +276,7 @@ def test_features_carry_across_both_ways():
                        score=rng.rand(5).astype(np.float32),
                        angle=rng.rand(5).astype(np.float32), descriptor=desc,
                        valid=rng.rand(5) > 0.5)
-    tf = tdet.features_from_numpy(jf)
+    tf = tdet.features_from_numpy(jf, device="cpu")
     assert tf.descriptor.dtype == torch.int32
     back = tdet.features_to_numpy(tf)
     for n in jdet.Features._fields:
@@ -284,7 +284,7 @@ def test_features_carry_across_both_ways():
     pool = _empty_rep_pool(3, 4)
     pool.kp0[1] = 2.5
     pool.active[1] = True
-    tp = tdet.features_from_numpy(pool)
+    tp = tdet.features_from_numpy(pool, device="cpu")
     assert type(tp).__module__.startswith("deepfactors_tpu_torch")
     for n in pool._fields:
         np.testing.assert_array_equal(getattr(tdet.features_to_numpy(tp), n),
