@@ -128,11 +128,30 @@ Phases, in order (any failure exits non-zero before the final line):
      RESUME_TOL_M of 10d's uninterrupted run.
      Each prints host ms per frame by event kind, kernels 1-3 launches, the
      ATE and the files written. ``--only-demo`` runs phases 1, 3 and 10.
+  11. decoder training (after phase 10; no kernel of its own: the U-Net's
+     convolutions are cuDNN's bf16 conv2d, as in phase 3):
+     11a. one step of the recipe (tools/train_room_decoder.py's VAEModel at
+     room256_32v4's width, batch 8 at 192x256, clip + adamw under the
+     cosine schedule) from room256_32v4's decoder and a seeded encoder, with
+     JAX's eps (port_tools/threefry_chain.py): the card against the port on
+     the CPU, loss and terms, the gradient norm, every leaf's gradient and
+     the parameters after the update; timed;
+     11b. the same step against JAX's make_train_step on a CPU
+     (TRAIN_JAX, from port_tools/jax_train_reference.py);
+     11c. ``train_room_decoder.main`` on the card with --randomize, from
+     flax's default init, 16 rooms x 16 views, 300 steps at batch 8: the
+     nll of the last 50 steps below the first 50's, ms per step, peak
+     device memory, held-out RMSEs; the weights written under build/phase11
+     read back by ``load_decoder`` and linear in the code;
+     11d. phase 4's configuration on 20 frames with 11c's decoder: every
+     frame tracked, the ATE printed (not bounded).
+     ``--only-train`` runs phases 1 and 11.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Run from the repository root:  python3 chip_smoke.py
-Options: --ptxas (print nvcc's register/shared-memory report); --only-demo.
+Options: --ptxas (print nvcc's register/shared-memory report); --only-demo;
+--only-train.
 """
 import argparse
 import json
@@ -515,6 +534,150 @@ NATIVE_ATE_TOL_M = 2e-3
 # 2.86e-3 m
 RESUME_FROM = 20
 RESUME_TOL_M = 1e-2
+
+# Phase 11 (decoder training). port_tools/jax_train_reference.py imports
+# these constants and helpers (numpy only) and runs the JAX package's
+# make_train_step on the same step on a CPU.
+# 11a/11b: one step of the recipe (tools/train_room_decoder.py's VAEModel at
+# room256_32v4's width: CS 32, 3 levels, base_ch 32, the conv head; clip 1.0
+# + adamw under cosine_decay_schedule(3e-4, 36000, alpha=0.1), beta 3e-4,
+# distill 0.1) from room256_32v4's decoder and an encoder drawn from
+# TRAIN_ENC_SEED, on a batch of 8: one view of each of TRAIN_ROOMS (the
+# recipe's plain render at 192x256, poses drawn as its build_dataset draws
+# them), eps = jax.random.normal(k, (32,)) per sample, k from
+# split(PRNGKey(TRAIN_EPS_SEED), 8) (port_tools/threefry_chain.py).
+TRAIN_ROOMS = (1, 2, 3, 4, 5, 6, 8, 9)
+TRAIN_POSE_SEED = 12
+TRAIN_ENC_SEED = 3
+TRAIN_EPS_SEED = 12
+TRAIN_HP = dict(lr=3e-4, decay_steps=36000, alpha=0.1, weight_decay=1e-4,
+                clip=1.0, beta=3e-4, distill_w=0.1)
+TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "phase11")
+# Limits of 11a (card against CPU) and 11b (card against JAX). Both sides
+# compute in bf16 and round at different places (cuDNN / XLA's patch einsum
+# / oneDNN); the limits stand over spreads read on a CPU at this step:
+# the port against JAX (port_tools/jax_train_reference.py) loss 1.69e-2,
+# nll 1.76e-2, kl 1.8e-4, distill 2.4e-3, kernel-gradient norm 2.3e-3,
+# modules' kernel-gradient norms <= 1.52e-2, the finest head's bias 1.46e-2;
+# and the port's bf16 step against the same step with fp32 convolutions:
+# nll 9.2e-3, distill 4.5e-3, gradient norm 3.9e-3, a leaf's gradient
+# <= 5.7e-2 (relative L2; ConvBlock_1's, then the first convs), all leaves
+# 1.6e-2, Adam's first step apart by more than 0.1 lr at 0.83 percent of
+# the elements (each element moves by ~lr x sign(g), so a near-zero
+# gradient may flip; never by more than 2 lr). The nll is large here (~90:
+# a random encoder's codes move prx against a small learned b), which
+# magnifies prx's bf16 noise.
+TRAIN_LOSS_TOL = 0.05       # loss, nll: relative
+TRAIN_TERM_TOL = 0.02       # kl, distill, gradient norms: relative
+TRAIN_LEAF_TOL = 0.15       # a leaf's (or a module's) gradient: relative L2
+TRAIN_ALL_TOL = 0.05        # all gradients together: relative L2
+TRAIN_FLIP_SHARE = 0.03     # elements whose first Adam step differs
+# JAX's step on a CPU (JAX_PLATFORMS=cpu python
+# port_tools/jax_train_reference.py, 194 s): the loss and its terms, the
+# kernel-gradient norm, each module's kernel-gradient norm, and d loss /
+# d bias of the finest head (decoder Conv_7) in forward mode (XLA:CPU sums
+# a bf16 cotangent in bf16, so its reverse-mode bias gradients saturate:
+# tests/test_torch_train.py).
+TRAIN_JAX = dict(
+    loss=95.407021, nll=90.960716, kl=0.003053919,
+    distill=44.46307, grad_norm_kernels=662.125504,
+    kernel_grad_norms={
+        "decoder.ConvBlock_0": 310.080788,
+        "decoder.ConvBlock_1": 215.520975,
+        "decoder.ConvBlock_2": 109.789534,
+        "decoder.ConvBlock_3": 51.825423,
+        "decoder.ConvBlock_4": 188.215002,
+        "decoder.ConvBlock_5": 223.910121,
+        "decoder.ConvBlock_6": 197.960391,
+        "decoder.Conv_0": 96.542474,
+        "decoder.Conv_1": 62.086093,
+        "decoder.Conv_2": 38.439098,
+        "decoder.Conv_3": 4.627857,
+        "decoder.Conv_4": 12.064949,
+        "decoder.Conv_5": 183.080706,
+        "decoder.Conv_6": 160.731281,
+        "decoder.Conv_7": 286.48232,
+        "decoder.code_head_conv": 8.629801,
+        "encoder.ConvBlock_0": 0.010872,
+        "encoder.ConvBlock_1": 0.018573,
+        "encoder.ConvBlock_2": 0.073581,
+        "encoder.ConvBlock_3": 0.671407,
+        "encoder.Conv_0": 0.008878,
+        "encoder.Conv_1": 0.015498,
+        "encoder.Conv_2": 0.123093,
+        "encoder.Conv_3": 1.167765,
+        "encoder.Dense_0": 0.995881,
+        "encoder.Dense_1": 0.219856},
+    finest_head_bias_grad=[
+        -50.4497, -28.4061, -1.26669, -1.168, 0.35208, -0.883309,
+        -0.787026, 1.1488, -0.0832347, -0.115171, -1.30234, -0.555216,
+        0.671439, 1.37896, -0.25159, -0.383044, 0.0289125, 0.570246,
+        -1.18288, -1.04773, 1.46668, -1.15975, -0.517935, -3.71297,
+        -1.11053, -0.610083, -0.117396, -0.406401, 0.289451, 0.525106,
+        0.924566, 0.289026, 0.226858, 1.24171])
+# 11c: the recipe (tools/train_room_decoder.py's flags; room256_32v4's head)
+# cut to 16 rooms x 16 views and 300 steps; 11d serves its weights in phase
+# 4's configuration on the first TRAIN_SERVE_FRAMES frames
+TRAIN_RECIPE_STEPS = 300
+TRAIN_RECIPE_ARGV = ["--steps", str(TRAIN_RECIPE_STEPS), "--batch", "8",
+                     "--rooms", "16", "--val-rooms", "2", "--poses-per-room",
+                     "16", "--randomize", "--pred-head", "conv",
+                     "--log-every", "50"]
+TRAIN_WARM_STEPS = 10
+TRAIN_SERVE_FRAMES = 20
+
+
+def train_batch_poses():
+    """[8, 4] quaternions and [8, 3] positions, one per TRAIN_ROOMS entry,
+    drawn as the recipe's build_dataset draws a pose (radius <= 1.2)."""
+    rng = np.random.RandomState(TRAIN_POSE_SEED)
+    qs, ts = [], []
+    for _ in TRAIN_ROOMS:
+        r, th = rng.uniform(0.0, 1.2), rng.uniform(0, 2 * np.pi)
+        ts.append([r * np.cos(th), rng.uniform(-0.25, 0.25), r * np.sin(th)])
+        yaw, pitch = rng.uniform(0, 2 * np.pi), rng.uniform(-0.25, 0.25)
+        cy, sy = np.cos(yaw / 2), np.sin(yaw / 2)
+        cp, sp = np.cos(pitch / 2), np.sin(pitch / 2)
+        qs.append([cy * cp, cy * sp, sy * cp, -sy * sp])
+    return np.asarray(qs, np.float32), np.asarray(ts, np.float32)
+
+
+def encoder_tree(code_size=32, base_ch=32, seed=TRAIN_ENC_SEED):
+    """The JAX DepthEncoder's parameter tree (numpy float32): kernels a
+    unit normal clipped at 2, over sqrt(fan_in); biases 0.01 x normal."""
+    rng = np.random.RandomState(seed)
+
+    def conv(cin, cout):
+        k = np.clip(rng.standard_normal((3, 3, cin, cout)), -2, 2)
+        return {"kernel": (k / np.sqrt(9 * cin)).astype(np.float32),
+                "bias": (0.01 * rng.standard_normal(cout)).astype(np.float32)}
+
+    tree, ch, cin = {}, base_ch, 2
+    for i in range(4):
+        nxt = min(ch * 2, 4 * base_ch)
+        tree[f"ConvBlock_{i}"] = {"Conv_0": conv(cin, ch),
+                                  "Conv_1": conv(ch, ch)}
+        tree[f"Conv_{i}"] = conv(ch, nxt)
+        cin = ch = nxt
+    for i in range(2):
+        k = np.clip(rng.standard_normal((ch, code_size)), -2, 2)
+        tree[f"Dense_{i}"] = {
+            "kernel": (k / np.sqrt(ch)).astype(np.float32),
+            "bias": (0.01 * rng.standard_normal(code_size)).astype(np.float32)}
+    return tree
+
+
+def grad_groups(names):
+    """Parameter names (a VAEModel state_dict's) grouped by their module
+    under decoder / encoder: ``decoder.ConvBlock_0`` holds both convs'
+    kernels. Bias leaves are left out (see TRAIN_JAX)."""
+    groups = {}
+    for n in names:
+        if n.endswith("bias"):
+            continue
+        groups.setdefault(".".join(n.split(".")[:2]), []).append(n)
+    return groups
 
 
 def large_map_links():
@@ -3609,11 +3772,207 @@ def phase_demo(dev, decoder):
     return out
 
 
+# ----------------------------------------------------------------------------
+# phase 11: decoder training
+# ----------------------------------------------------------------------------
+
+def train_step_inputs():
+    """11a's parameter tree (room256_32v4's decoder, ``encoder_tree()``),
+    batch (the port's plain render of TRAIN_ROOMS, on the CPU so that the
+    card and the CPU step on the same bits) and JAX's eps (threefry)."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "port_tools"))
+    import threefry_chain
+    from deepfactors_tpu_torch.geometry.camera import PinholeCamera
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+    from deepfactors_tpu_torch.io import synth
+    from deepfactors_tpu_torch.models.decoder import load_params
+
+    dec = load_params(os.path.join(HERE, "data", "nets", "room256_32v4.pkl"))
+    tree = {"params": {"decoder": dec["params"], "encoder": encoder_tree()}}
+    cam = PinholeCamera.create(fx=220.0, fy=220.0, u0=W / 2, v0=H / 2,
+                               width=W, height=H)
+    q, t = train_batch_poses()
+    imgs, dpts = zip(*[synth.render(synth.random_room(r, 3), cam,
+                                    SE3(q[i], t[i]), H, W, device="cpu")
+                       for i, r in enumerate(TRAIN_ROOMS)])
+    imgs, dpts = torch.stack(imgs), torch.stack(dpts)
+    keys = threefry_chain.split(threefry_chain.prng_key(TRAIN_EPS_SEED),
+                                len(TRAIN_ROOMS))
+    eps = torch.from_numpy(np.stack([threefry_chain.normal(k, (32,))
+                                     for k in keys]))
+    return tree, imgs, 2.0 / (2.0 + dpts), eps
+
+
+def train_step_run(dev, tree, imgs, gts, eps, time_it=False):
+    """One recipe step on ``dev`` from ``tree``; returns the loss and its
+    terms, the gradients and the parameters after the update (on the CPU),
+    and the device ms of a step when ``time_it``."""
+    import torch
+    from deepfactors_tpu_torch import configure_numerics
+    from deepfactors_tpu_torch.models import train_decoder as td
+
+    configure_numerics()
+    hp = TRAIN_HP
+    m = td.VAEModel(32, 3, 32, "conv", (H, W))
+    m.load_state_dict(td.vae_params_from_jax(tree))
+    m.to(dev).train()
+    opt = td.OptaxAdam(m.parameters(), td.cosine_decay_schedule(
+        hp["lr"], hp["decay_steps"], hp["alpha"]),
+        weight_decay=hp["weight_decay"], clip_norm=hp["clip"])
+    step = td.make_train_step(m, opt, hp["beta"], hp["distill_w"])
+    args = [x.to(dev) for x in (imgs, gts, eps)]
+    loss, aux = step(*args)
+    out = {k: float(v) for k, v in aux.items()}
+    out["loss"] = float(loss)
+    out["grads"] = {n: p.grad.detach().cpu().clone()
+                    for n, p in m.named_parameters()}
+    out["params"] = {n: p.detach().cpu().clone()
+                     for n, p in m.named_parameters()}
+    if time_it:
+        out["ms"] = cuda_ms(lambda: step(*args), iters=10)
+    return out
+
+
+def phase_train_step(dev):
+    """11a: one step at full width, card against the port on the CPU;
+    11b: the same step against JAX's CPU run (TRAIN_JAX)."""
+    import torch
+    tree, imgs, gts, eps = train_step_inputs()
+    card = train_step_run(dev, tree, imgs, gts, eps, time_it=True)
+    cpu = train_step_run("cpu", tree, imgs, gts, eps)
+    for k in ("loss", "nll"):
+        assert abs(card[k] - cpu[k]) <= TRAIN_LOSS_TOL * abs(cpu[k]), k
+    for k in ("kl", "distill", "grad_norm"):
+        assert abs(card[k] - cpu[k]) <= TRAIN_TERM_TOL * abs(cpu[k]), k
+    worst, num, den = {}, 0.0, 0.0
+    for n, g in cpu["grads"].items():
+        a = card["grads"][n]
+        assert bool(torch.isfinite(a).all()), n
+        e, d = float((a - g).norm()), float(g.norm())
+        worst[n] = e / d
+        num, den = num + e * e, den + d * d
+        assert e <= TRAIN_LEAF_TOL * d, (n, e / d)
+    assert (num / den) ** 0.5 <= TRAIN_ALL_TOL, (num / den) ** 0.5
+    # Adam's first step moves each element by ~lr x sign(g): where a
+    # gradient element is near 0 the two signs may differ, never more
+    lr0 = TRAIN_HP["lr"]
+    moved = far = total = 0
+    for n, p in cpu["params"].items():
+        d = (card["params"][n] - p).abs()
+        assert float(d.max()) <= 2.0 * lr0 * 1.001 + 1e-6, n
+        far += int((d > 0.1 * lr0).sum())
+        total += d.numel()
+    assert far <= TRAIN_FLIP_SHARE * total, far / total
+    n_worst = max(worst, key=worst.get)
+    log(f"11a one recipe step at 192x256, batch 8 (VAEModel CS 32, 3 levels, "
+        f"conv head; room256_32v4's decoder): loss {card['loss']:.6f} (CPU "
+        f"{cpu['loss']:.6f}), nll {card['nll']:.6f} ({cpu['nll']:.6f}), kl "
+        f"{card['kl']:.6f} ({cpu['kl']:.6f}), distill {card['distill']:.6f} "
+        f"({cpu['distill']:.6f}), grad norm {card['grad_norm']:.6f} "
+        f"({cpu['grad_norm']:.6f}); gradients over all leaves rel "
+        f"{(num / den) ** 0.5:.2e}, worst leaf {n_worst} {worst[n_worst]:.2e}"
+        f"; parameters after the update: {far} of {total} elements apart by "
+        f"more than 0.1 lr; card step {card['ms']:.3f} ms; {smi_line()}")
+    # 11b: against JAX
+    j = TRAIN_JAX
+    for k in ("loss", "nll"):
+        assert abs(card[k] - j[k]) <= TRAIN_LOSS_TOL * abs(j[k]), k
+    for k in ("kl", "distill"):
+        assert abs(card[k] - j[k]) <= TRAIN_TERM_TOL * abs(j[k]), k
+    groups = grad_groups(card["grads"])
+    gsum = lambda ns: sum(float(card["grads"][n].double().square().sum())
+                          for n in ns)
+    kn = sum(gsum(v) for v in groups.values()) ** 0.5
+    assert abs(kn - j["grad_norm_kernels"]) <= TRAIN_TERM_TOL * kn
+    group_err = {k: abs(gsum(v) ** 0.5 - j["kernel_grad_norms"][k])
+                 / j["kernel_grad_norms"][k] for k, v in groups.items()}
+    assert set(group_err) == set(j["kernel_grad_norms"])
+    assert max(group_err.values()) <= TRAIN_LEAF_TOL, group_err
+    hb = card["grads"]["decoder.Conv_7.bias"].double().numpy()
+    want = np.asarray(j["finest_head_bias_grad"])
+    hb_err = float(np.linalg.norm(hb - want) / np.linalg.norm(want))
+    assert hb_err <= TRAIN_LEAF_TOL, hb_err
+    g_worst = max(group_err, key=group_err.get)
+    log(f"11b the same step against JAX's make_train_step on a CPU "
+        f"(port_tools/jax_train_reference.py): loss {j['loss']:.6f}, nll "
+        f"{j['nll']:.6f}, kl {j['kl']:.6f}, distill {j['distill']:.6f}; "
+        f"kernel-gradient norm {kn:.6f} (JAX {j['grad_norm_kernels']:.6f}), "
+        f"worst module {g_worst} {group_err[g_worst]:.2e}; finest head's bias "
+        f"against JAX's forward mode {hb_err:.2e}")
+    return card
+
+
+def phase_train_recipe(dev):
+    """11c: train_room_decoder.main on the card, 300 steps; the weights it
+    writes read back and linear. Returns the loaded decoder."""
+    import torch
+    from deepfactors_tpu_torch import train_room_decoder as trd
+    from deepfactors_tpu_torch.models.decoder import load_decoder, load_params
+
+    out = os.path.join(TRAIN_DIR, "room256_p11")
+    t0 = time.time()
+    r = trd.main(TRAIN_RECIPE_ARGV + ["--out", out, "--device", dev], log=log)
+    wall = time.time() - t0
+    nll = r["nll"]
+    assert np.isfinite(nll).all() and len(nll) == TRAIN_RECIPE_STEPS
+    first, last = float(nll[:50].mean()), float(nll[-50:].mean())
+    assert last < first, (first, last)
+    warm = r["step_ms"][TRAIN_WARM_STEPS:]
+    dec = load_decoder(out, device=dev)
+    params = load_params(out + ".pkl")
+    assert dec.cfg.pred_head == "conv" and dec.cfg.code_size == 32
+    img = torch.rand(H, W, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    res0 = dec.decode(img, torch.zeros(32, device=dev))
+    c = torch.full((32,), 0.3, device=dev)
+    res = dec.decode(img, c)
+    for lvl in range(3):
+        pred = res0.prx[lvl] + res0.jac[lvl] @ c
+        assert float((res.prx[lvl] - pred).abs().max()) <= 1e-5, lvl
+    v = r["val"]
+    log(f"11c train_room_decoder on the card ({' '.join(TRAIN_RECIPE_ARGV)}): "
+        f"{r['frames']} frames rendered in {r['dataset_s']:.2f} s; "
+        f"{TRAIN_RECIPE_STEPS} steps in {r['train_s']:.2f} s; ms per step "
+        f"(CUDA events between steps on the card) median {np.median(warm):.3f}, p90 "
+        f"{np.percentile(warm, 90):.3f} over steps {TRAIN_WARM_STEPS}+; "
+        f"peak device memory {(r['peak_bytes'] or 0) / 2**20:.1f} MiB; nll mean of "
+        f"steps 0-49 {first:.4f}, 250-299 {last:.4f}; loss at steps "
+        f"{[(i, round(x, 4)) for i, x in r['logged']]}; held-out depth "
+        f"RMSE zero-code {v[0]:.4f} m, pred-code {v[1]:.4f}, opt-code "
+        f"{v[5]:.4f}; prox RMSE zero {v[2]:.4f}, pred {v[3]:.4f}; "
+        f"{len(params['params'])} modules written to {out}.pkl, read back "
+        f"linear within 1e-5; {wall:.1f} s in all; {smi_line()}")
+    return dec
+
+
+def phase_train(dev):
+    """Phase 11: 11a-11d. Returns 11d's launch counts."""
+    os.makedirs(TRAIN_DIR, exist_ok=True)
+    phase_train_step(dev)
+    dec = phase_train_recipe(dev)
+    r = run_facade(dev, dec, "11d", scene_seed=7, n_frames=TRAIN_SERVE_FRAMES,
+                   max_keyframes=32, max_factors=128, use_reprojection=True,
+                   time_parts=False)
+    launches = launch_counts()
+    df = r["df"]
+    assert df.n_lost_frames == 0 and r["tracked"] == 1.0, "frames lost"
+    assert all(launches[k] > 0 for k in ("se3_gram_batch", "sfm_gram_batch")
+               ), launches
+    log(f"11d phase 4's configuration on {TRAIN_SERVE_FRAMES} frames with "
+        f"11c's decoder: tracked {r['tracked']}, {df.mapper._next_kid} "
+        f"keyframes, ATE {r['ate']:.4f} m (not bounded: 300 steps); "
+        f"launches {launches}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--only-demo", action="store_true",
                     help="phases 1 (build), 3 (decoder) and 10 only")
+    ap.add_argument("--only-train", action="store_true",
+                    help="phases 1 (build) and 11 only")
     args = ap.parse_args()
 
     import torch
@@ -3645,9 +4004,12 @@ def main():
         for src, v in build.build_log.items():
             log(f"--- {src}\n{v['ptxas']}")
 
-    if args.only_demo:
-        launches_demo = phase_demo(dev, phase_decoder(dev))
-        log(json.dumps({"demo_launches": launches_demo}))
+    if args.only_demo or args.only_train:
+        if args.only_demo:
+            out = {"demo_launches": phase_demo(dev, phase_decoder(dev))}
+        else:
+            out = {"train_launches": phase_train(dev)}
+        log(json.dumps(out))
         log(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3670,6 +4032,7 @@ def main():
     phase_depth_prior(dev)
     launches_refine = phase_refine(dev, decoder)
     launches_demo = phase_demo(dev, decoder)
+    launches_train = phase_train(dev)
 
     meta = {
         "se3_gram_batch": ("deepfactors_tpu_torch/csrc/se3_gram.cu",
@@ -3698,7 +4061,8 @@ def main():
                    "long_run": launches[name],
                    **{k: v[name] for k, v in parallel.items()},
                    "refine": launches_refine[name],
-                   **{k: v[name] for k, v in launches_demo.items()}}
+                   **{k: v[name] for k, v in launches_demo.items()},
+                   "trained_decoder": launches_train[name]}
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep,
                      "launches": launches[name] or par_total[name],

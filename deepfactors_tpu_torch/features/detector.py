@@ -173,6 +173,15 @@ def detect(img: Tensor, cfg: DetectorConfig = DetectorConfig()) -> Features:
                     descriptor=_descriptors(img, xy, angle), valid=valid)
 
 
+def detect_batch(imgs: Tensor, cfg: DetectorConfig = DetectorConfig()
+                 ) -> Features:
+    """``detect`` over a batch of images [B, H, W]: each field with a
+    leading B."""
+    fs = [detect(img, cfg) for img in imgs]
+    return Features(*(torch.stack([getattr(f, n) for f in fs])
+                      for n in Features._fields))
+
+
 def _select_uniform(xy: Tensor, score: Tensor, valid: Tensor, W0: int,
                     H0: int, cell: int, K: int):
     """Spatial-uniformity selection: the best keypoint of every grid cell is

@@ -101,7 +101,8 @@ _INPLANE = np.array([[1, 2], [1, 2], [0, 2], [0, 2], [0, 1], [0, 1]])
 def render(scene: RoomScene, cam: PinholeCamera, pose: SE3, height: int,
            width: int, device="cuda"):
     """(image [H, W] in [0, 1], z-depth [H, W]) of the scene seen from a
-    camera-to-world pose, ray-cast on ``device``."""
+    camera-to-world pose, ray-cast on ``device``. A batch of poses (q [N, 4],
+    t [N, 3]) gives [N, H, W] each."""
     dev = torch.device(device)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     ys, xs = torch.meshgrid(torch.arange(height, dtype=torch.float32, device=dev),
@@ -110,14 +111,14 @@ def render(scene: RoomScene, cam: PinholeCamera, pose: SE3, height: int,
     dirs = torch.stack([(xs - cam.u0) / cam.fx, (ys - cam.v0) / cam.fy,
                         torch.ones_like(xs)], dim=-1).reshape(-1, 3)
     R = se3m.quat_to_matrix(f(pose.q))
-    d = dirs @ R.T
-    o = f(pose.t).expand(d.shape)
+    d = dirs @ R.mT                                   # [..., HW, 3]
+    o = f(pose.t)[..., None, :].expand(d.shape)
     safe = _signed_safe(d)
 
     pos = d >= 0
     t_ax = (torch.where(pos, f(scene.room_max), f(scene.room_min)) - o) / safe
     t_room, axis = torch.min(t_ax, dim=-1)
-    face_room = axis * 2 + torch.gather(pos, 1, axis[:, None])[:, 0].long()
+    face_room = axis * 2 + torch.gather(pos, -1, axis[..., None])[..., 0].long()
     ts, faces = [t_room], [face_room]
     for b in range(scene.box_min.shape[0]):
         t1 = (f(scene.box_min[b]) - o) / safe
@@ -125,20 +126,21 @@ def render(scene: RoomScene, cam: PinholeCamera, pose: SE3, height: int,
         t_near, ax = torch.max(torch.minimum(t1, t2), dim=-1)
         t_far = torch.min(torch.maximum(t1, t2), dim=-1).values
         hit = (t_near < t_far) & (t_near > 1e-4)
-        side = torch.gather(d, 1, ax[:, None])[:, 0] < 0
+        side = torch.gather(d, -1, ax[..., None])[..., 0] < 0
         ts.append(torch.where(hit, t_near, torch.full_like(t_near, float("inf"))))
         faces.append(6 + 6 * b + ax * 2 + side.long())
     ts, faces = torch.stack(ts), torch.stack(faces)
     win = torch.argmin(ts, dim=0)
     t = torch.gather(ts, 0, win[None])[0]
     face = torch.gather(faces, 0, win[None])[0]
-    p = o + t[:, None] * d
+    p = o + t[..., None] * d
     local = torch.as_tensor(_INPLANE, device=dev)[face % 6]
-    u = torch.gather(p, 1, local[:, :1])[:, 0]
-    v = torch.gather(p, 1, local[:, 1:])[:, 0]
-    params = f(scene.tex)[face].T
+    u = torch.gather(p, -1, local[..., :1])[..., 0]
+    v = torch.gather(p, -1, local[..., 1:])[..., 0]
+    params = f(scene.tex)[face].movedim(-1, 0)
     img = _texture(u, v, params)
-    return img.reshape(height, width), t.reshape(height, width)
+    lead = t.shape[:-1]
+    return img.reshape(*lead, height, width), t.reshape(*lead, height, width)
 
 
 def render_aa(scene: RoomScene, cam: PinholeCamera, pose: SE3, height: int,
@@ -191,6 +193,37 @@ def render_sequence(scene: RoomScene, cam: PinholeCamera, poses, height: int,
         imgs.append(img.cpu().numpy())
         dpts.append(dpt.cpu().numpy())
     return (imgs, dpts) if with_depth else imgs
+
+
+def room_dataset(height: int, width: int, cam: PinholeCamera,
+                 batch: int = 8, seed: int = 0, n_boxes: int = 3,
+                 rooms: int = 64, device="cuda"):
+    """Infinite (images [B, H, W], depths [B, H, W]) iterator of host numpy
+    batches over random rooms and random in-room viewpoints (the decoder's
+    training distribution), rendered anti-aliased on ``device``. The draws
+    come from ``np.random.RandomState(seed)`` in the JAX package's order
+    (a room, then its pose), so a seed gives the JAX package's views."""
+    rng = np.random.RandomState(seed)
+    scenes = [random_room(seed * 1000 + r, n_boxes) for r in range(rooms)]
+
+    def random_pose():
+        r = rng.uniform(0.0, 1.2)
+        th = rng.uniform(0, 2 * np.pi)
+        pos = np.array([r * np.cos(th), rng.uniform(-0.25, 0.25),
+                        r * np.sin(th)], np.float32)
+        q = _np_yaw_pitch_quat(rng.uniform(0, 2 * np.pi),
+                               rng.uniform(-0.25, 0.25))
+        return SE3(q, pos)
+
+    while True:
+        imgs, dpts = [], []
+        for _ in range(batch):
+            sc = scenes[rng.randint(len(scenes))]
+            img, dpt = render_aa(sc, cam, random_pose(), height, width,
+                                 device=device)
+            imgs.append(img.cpu().numpy())
+            dpts.append(dpt.cpu().numpy())
+        yield np.stack(imgs), np.stack(dpts)
 
 
 class OracleDecoder:

@@ -100,16 +100,18 @@ class ConvBlock(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax nn.Dense in bf16: kernel stored [in, out]."""
+    """flax nn.Dense computing in ``dtype`` (the decoder's heads bf16, the
+    training encoder's fp32): kernel stored [in, out]."""
 
-    def __init__(self, fin: int, fout: int):
+    def __init__(self, fin: int, fout: int, dtype=torch.bfloat16):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.zeros(fin, fout))
         self.bias = nn.Parameter(torch.zeros(fout))
 
     def forward(self, x):
-        y = x.to(torch.bfloat16) @ self.kernel.to(torch.bfloat16)
-        return y + self.bias.to(torch.bfloat16)
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return y + self.bias.to(self.dtype)
 
 
 class DepthDecoder(nn.Module):
@@ -118,7 +120,8 @@ class DepthDecoder(nn.Module):
     (ConvBlock_i, Conv_i, code_head(_conv)), so the checkpoint maps by name.
 
     ``forward(img [H, W])`` returns feature-major outputs: prx0/stdev
-    [H_l, W_l], jac [CS, H_l, W_l], code_pred [CS] (fp32)."""
+    [H_l, W_l], jac [CS, H_l, W_l], code_pred [CS] (fp32); a batch [B, H, W]
+    gives each with a leading B."""
 
     def __init__(self, code_size=32, levels=4, base_ch=32, pred_head="gap",
                  input_hw=(192, 256)):
@@ -148,7 +151,9 @@ class DepthDecoder(nn.Module):
         if pred_head == "conv":
             conv(ch, ch, 2)
             conv(ch, 64, 2)
-            h, w = H >> (levels + 2), W >> (levels + 2)
+            h, w = H, W
+            for _ in range(levels + 2):      # SAME, stride 2: ceil(n / 2)
+                h, w = -(-h // 2), -(-w // 2)
             self.code_head_conv = Dense(64 * h * w, code_size)
         else:
             self.code_head = Dense(ch, code_size)
@@ -160,8 +165,13 @@ class DepthDecoder(nn.Module):
         self._n_block, self._n_conv = n_block, n_conv
 
     def forward(self, img: Tensor) -> dict:
-        L = self.levels
-        x = img[None, None].to(torch.bfloat16)       # NCHW
+        """``img`` [H, W] or a batch [B, H, W]; the outputs carry the same
+        leading axis (none for [H, W], which runs as a batch of one)."""
+        if img.dim() == 2:
+            return {k: (v[0] if k == "code_pred" else tuple(a[0] for a in v))
+                    for k, v in self.forward(img[None]).items()}
+        L, B = self.levels, img.shape[0]
+        x = img[:, None].to(torch.bfloat16)          # NCHW
         skips = []
         bi = ci = 0
         for _ in range(L):
@@ -173,11 +183,11 @@ class DepthDecoder(nn.Module):
         if self.pred_head == "conv":
             h = _gelu(getattr(self, f"Conv_{ci}")(x)); ci += 1
             h = _gelu(getattr(self, f"Conv_{ci}")(h)); ci += 1
-            h = h.permute(0, 2, 3, 1).reshape(1, -1)   # NHWC flatten
-            code_pred = self.code_head_conv(h)[0].to(torch.float32)
+            h = h.permute(0, 2, 3, 1).reshape(B, -1)   # NHWC flatten
+            code_pred = self.code_head_conv(h).to(torch.float32)
         else:
             gap = x.mean(dim=(2, 3))
-            code_pred = self.code_head(gap)[0].to(torch.float32)
+            code_pred = self.code_head(gap).to(torch.float32)
 
         prx0s, jacs, stds = [], [], []
         for lvl in reversed(range(L)):
@@ -185,19 +195,19 @@ class DepthDecoder(nn.Module):
             x = F.interpolate(x, size=skip.shape[-2:], mode="nearest-exact")
             x = torch.cat([x, skip], dim=1)
             x = getattr(self, f"ConvBlock_{bi}")(x); bi += 1
-            head = getattr(self, f"Conv_{ci}")(x).to(torch.float32)[0]; ci += 1
-            prx0s.append(torch.sigmoid(head[0]))
-            stds.append(head[1])
-            jacs.append(0.01 * head[2:])
+            head = getattr(self, f"Conv_{ci}")(x).to(torch.float32); ci += 1
+            prx0s.append(torch.sigmoid(head[:, 0]))
+            stds.append(head[:, 1])
+            jacs.append(0.01 * head[:, 2:])
         return {"prx0": tuple(prx0s[::-1]), "jac": tuple(jacs[::-1]),
                 "stdev": tuple(stds[::-1]), "code_pred": code_pred}
 
 
 def params_from_jax(params: dict) -> dict:
-    """Map the JAX parameter tree (nested dicts of numpy arrays, as pickled
-    by deepfactors_tpu.models.decoder.save_params) to a DepthDecoder
-    state_dict: conv kernels [kh, kw, Cin, Cout] -> [Cout, Cin, kh, kw],
-    Dense kernels kept [in, out]."""
+    """Map a JAX parameter tree (nested dicts of numpy arrays, as pickled
+    by deepfactors_tpu.models.decoder.save_params) to a state_dict: conv
+    kernels [kh, kw, Cin, Cout] -> ``weight`` [Cout, Cin, kh, kw], Dense
+    kernels (2-D) kept [in, out]."""
     tree = params.get("params", params)
     out = {}
 
@@ -207,8 +217,7 @@ def params_from_jax(params: dict) -> dict:
                 walk(v, prefix + name + ".")
                 continue
             a = np.asarray(v, np.float32)
-            dense = prefix.startswith("code_head")
-            if name == "kernel" and not dense:
+            if name == "kernel" and a.ndim == 4:
                 out[prefix + "weight"] = torch.from_numpy(
                     np.ascontiguousarray(a.transpose(3, 2, 0, 1)))
             else:
@@ -216,6 +225,49 @@ def params_from_jax(params: dict) -> dict:
 
     walk(tree, "")
     return out
+
+
+def params_to_jax(state_dict: dict) -> dict:
+    """The inverse of ``params_from_jax``: a state_dict -> the JAX tree
+    ``{"params": {...}}`` of float32 numpy arrays (conv ``weight`` back to
+    ``kernel`` [kh, kw, Cin, Cout])."""
+    tree: dict = {}
+    for key, v in state_dict.items():
+        *path, name = key.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        a = v.detach().to("cpu", torch.float32).numpy()
+        if name == "weight":
+            name, a = "kernel", a.transpose(2, 3, 1, 0)
+        node[name] = np.ascontiguousarray(a)
+    return {"params": tree}
+
+
+def save_params(path: str, params) -> None:
+    """Pickle a JAX-layout parameter tree of numpy arrays (``params_to_jax``
+    or a tree loaded by ``load_params``): the file format of
+    ``data/nets/*.pkl``, which both packages load."""
+    with open(path, "wb") as f:
+        pickle.dump(params, f)
+
+
+def init_flax_defaults(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initialisers, in place: every kernel ``lecun_normal``
+    (a normal truncated at two standard deviations, scaled to variance
+    1 / fan_in, fan_in = kh * kw * Cin for a conv and the input width for a
+    Dense), every bias zero."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+                continue
+            fan_in = p[0].numel() if p.dim() == 4 else p.shape[0]
+            # stddev of the unit normal truncated to [-2, 2]
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            w = torch.empty(p.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            p.copy_(w * std)
 
 
 def load_params(path: str) -> dict:

@@ -16,7 +16,11 @@ both ways of one pair (128 hypotheses), and the rep system of 32 factors
 with its assembly, with ``--phase pipelined`` phase 8's run, bench.py's
 end-to-end row through the pipelined facade (300 frames of room 7 at
 ``pipeline_depth=1``, its prewarm and rendering included; no sync audit,
-no upload or probe check);
+no upload or probe check), with ``--phase train`` 50 steps of phase 11's
+training recipe (VAEModel at room256_32v4's width from flax's default init,
+batch 8 at 192x256 gathered from 16 rendered views and augmented, clip +
+adamw), printing also the convolutions' operations a step and the bound they
+set at the card's bf16 peak;
 each without its set-up) once to warm up, then again under
 ``torch.profiler`` with CUDA activity only, and prints:
   - the run's wall time and the device's busy time (the union of all
@@ -109,6 +113,54 @@ def rep_ops_problem(cs, dev="cuda"):
     return run
 
 
+BF16_PEAK_FLOPS = 989e12     # H100 SXM, dense bf16 tensor cores
+
+
+TRAIN_STEPS = 50
+
+
+def train_problem(cs, dev="cuda", steps=TRAIN_STEPS, batch=8):
+    """Phase 11's training loop for ``steps`` steps; returns the closure
+    and a dict whose "conv_flops" the closure fills with the forward
+    convolutions' operations of one step (2 k^2 Cin Cout Ho Wo B each)."""
+    import torch
+    from deepfactors_tpu_torch import train_room_decoder as trd
+    from deepfactors_tpu_torch.models import decoder as dm
+    from deepfactors_tpu_torch.models import train_decoder as td
+
+    imgs, dpts = trd.build_dataset(2, 8, cs.H, cs.W, cs._smoke_camera(),
+                                   randomize=True, device=dev)
+    gts = 2.0 / (2.0 + dpts)
+    model = td.VAEModel(32, 3, 32, "conv", (cs.H, cs.W))
+    dm.init_flax_defaults(model, torch.Generator().manual_seed(0))
+    model.to(dev).train()
+    hp = cs.TRAIN_HP
+    opt = td.OptaxAdam(model.parameters(), td.cosine_decay_schedule(
+        hp["lr"], hp["decay_steps"], hp["alpha"]),
+        weight_decay=hp["weight_decay"], clip_norm=hp["clip"])
+    step = td.make_train_step(model, opt, hp["beta"], hp["distill_w"])
+    aug = trd.make_augment("mild")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    count = {"conv_flops": 0}
+
+    def hook(mod, inp, out):
+        count["conv_flops"] += (2 * mod.k * mod.k * mod.weight.shape[1]
+                                * out.numel())
+
+    def run():
+        count["conv_flops"] = 0
+        for i in range(steps):
+            idx = torch.randint(0, imgs.shape[0], (batch,), generator=gen,
+                                device=dev)
+            hooks = ([m.register_forward_hook(hook) for m in model.modules()
+                      if isinstance(m, dm.Conv)] if i == 0 else [])
+            step(aug(imgs[idx], gen), gts[idx], generator=gen)
+            for h in hooks:
+                h.remove()
+
+    return run, count
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--top", type=int, default=25)
@@ -116,7 +168,7 @@ def main():
     ap.add_argument("--long", action="store_true")
     ap.add_argument("--phase", default=None,
                     choices=("large_map", "odometry", "rep_ops", "loop",
-                             "reloc", "pipelined"))
+                             "reloc", "pipelined", "train"))
     args = ap.parse_args()
 
     import torch
@@ -144,6 +196,8 @@ def main():
         phase = lambda: cs.odometry_run(setup)
     elif name == "rep_ops":
         phase = rep_ops_problem(cs)
+    elif name == "train":
+        phase, count = train_problem(cs)
     elif name == "pipelined":
         phase = lambda: cs.run_pipelined("cuda", dec, "pipelined", audit=None,
                                          checks=False)
@@ -176,6 +230,17 @@ def main():
         "kernels": [{"name": n[:120], "count": c, "total_ms": t / 1e3,
                      "mean_us": t / c} for n, (c, t) in rows[:args.top]],
     }
+    if name == "train":
+        # backward: a data and a weight gradient per convolution, each the
+        # forward's operations
+        out["conv_flops_per_step"] = 3 * count["conv_flops"]
+        out["bf16_bound_ms_per_step"] = (3 * count["conv_flops"]
+                                         / BF16_PEAK_FLOPS * 1e3)
+        print(f"train: convolutions {out['conv_flops_per_step'] / 1e9:.1f} "
+              f"GFLOP a step (forward x 3), bound "
+              f"{out['bf16_bound_ms_per_step']:.3f} ms at the bf16 peak; "
+              f"wall {out['wall_ms'] / TRAIN_STEPS:.3f} ms a step under the "
+              f"profiler")
     print(f"profiled {name}: wall {out['wall_ms']:.1f} ms, device busy "
           f"{out['device_busy_ms']:.1f} ms, idle share "
           f"{out['device_idle_share']:.4f}, {len(dev_events)} device events")

@@ -9,6 +9,10 @@ can take JAX's draws too. It reproduces, for the default threefry PRNG with
   - ``PRNGKey(seed)``: the key (seed >> 32, seed & 0xffffffff);
   - ``split(key, n)``: threefry2x32 of the counters (0, i), i < n, one key
     per (x0, x1) pair;
+  - ``uniform`` and ``normal`` (float32; ``normal`` within a few ulp:
+    its erfinv is float64 here, XLA's a float32 polynomial), which give
+    the noise of the decoder's training step (one ``normal(k, (CS,))`` per
+    sample, k from ``split(key, B)``);
   - ``categorical(key, logits, shape=(I, 8))`` with replacement and the
     "low" Gumbel mode: 32 random bits a sample (x0 ^ x1 of the threefry
     of the flat index), a uniform float32 in [tiny, 1) from the top 23
@@ -82,6 +86,31 @@ def gumbel(key, shape):
                    + np.float32(_TINY))
     with np.errstate(divide="ignore"):
         return -np.log(-np.log(u))
+
+
+def uniform(key, shape, minval=0.0, maxval=1.0):
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
+    23 random bits as a float in [1, 2), minus 1, times (maxval - minval)
+    plus minval in one rounding (XLA fuses the two into a multiply-add:
+    the float64 product of two float32 is exact), held at ``minval``."""
+    bits = random_bits(key, shape)
+    f = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    fma = ((f - np.float32(1.0)).astype(np.float64) * np.float64(hi - lo)
+           + np.float64(lo))
+    return np.maximum(lo, fma.astype(np.float32))
+
+
+def normal(key, shape):
+    """``jax.random.normal(key, shape)`` in float32: a uniform in
+    (-1, 1) (``minval`` the float32 just above -1), then sqrt(2) *
+    erfinv. erfinv runs in float64 here and XLA's is a float32
+    polynomial, so a value may differ from JAX's by a few ulp."""
+    from scipy.special import erfinv
+
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform(key, shape, lo, 1.0)
+    return (np.sqrt(2.0) * erfinv(u.astype(np.float64))).astype(np.float32)
 
 
 def categorical(key, logits, shape):

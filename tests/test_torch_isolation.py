@@ -56,7 +56,8 @@ def test_port_and_chip_smoke_import_without_jax():
                 "features.sampler", "config", "io.preprocess",
                 "io.drivers", "io.image_io", "io.sequences", "demo", "native",
                 "viz", "utils.checkpoint", "utils.interp",
-                "utils.profiling"):
+                "utils.profiling", "models.train_decoder",
+                "train_room_decoder"):
         assert "deepfactors_tpu_torch." + mod in seen, mod
 
 
