@@ -146,12 +146,26 @@ Phases, in order (any failure exits non-zero before the final line):
      11d. phase 4's configuration on 20 frames with 11c's decoder: every
      frame tracked, the ATE printed (not bounded).
      ``--only-train`` runs phases 1 and 11.
+  12. the tools (after phase 11; deepfactors_tpu_torch/tools, no kernel of
+     their own), each on the card at 192x256 with room256_32v4 through its
+     ``main``: LiveViewer on the first 30 frames of phase 4's configuration
+     (a refreshing page during the run, none after ``finish()``, every
+     keyframe's files), then the run directory's replay and result viewers;
+     decode_image (the proximity maps and code against the CPU's);
+     test_matching; voc_builder (k-means on the host) and voc_test on
+     synthetic://256x192:40, then voc_test over the CPU's render of those
+     frames on the card and on the CPU (BoW vectors and scores);
+     kernel_benchmark, profile_ba, profile_dispatch (main, n0, fixed) and
+     profile_event (host ms, CUDA-event µs, profiler kernel µs and count per
+     stage); schur_crossover over K = 4..48 (both solutions of every system
+     against the CPU's). Every kernel launched; no cv2 imported.
+     ``--only-tools`` runs phases 1 and 12.
 Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Run from the repository root:  python3 chip_smoke.py
 Options: --ptxas (print nvcc's register/shared-memory report); --only-demo;
---only-train.
+--only-train; --only-tools.
 """
 import argparse
 import json
@@ -375,7 +389,6 @@ PIPE_SCENE_SEED = 7
 PIPE_FRAMES = 300
 PIPE_WARM = 10
 PIPE_DEPTH = 1
-PIPE_MAX_KEYFRAMES = 10
 PIPE_JAX = dict(n_frames=297, trajectory=298, loops=(0, 0, 3), ate=0.5130,
                 keyframes_built=60, evictions=50)
 PIPE_ATE_BOUND_M = 0.80
@@ -626,6 +639,23 @@ TRAIN_RECIPE_ARGV = ["--steps", str(TRAIN_RECIPE_STEPS), "--batch", "8",
                      "--log-every", "50"]
 TRAIN_WARM_STEPS = 10
 TRAIN_SERVE_FRAMES = 20
+
+
+# Phase 12 (the tools: deepfactors_tpu_torch/tools), each on the card at
+# full width (192x256, room256_32v4, CS 32). The viewers read a run
+# directory of phase 4's configuration: LiveViewer attached to its first
+# TOOLS_LIVE_FRAMES frames, then save_results. The numbers a tool computes
+# are held against the same tool on the CPU: the decoded proximity within
+# DECODER_TOL (phase 3's), both solutions of every schur_crossover system
+# within TOOLS_SOLVE_TOL (relative L2; the test of the tool against JAX
+# holds 1e-4 on a CPU), and voc_test's BoW vectors and scores within
+# BOW_SIM_TOL (phase 2b's: the same descriptors give the same words).
+TOOLS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "phase12")
+TOOLS_LIVE_FRAMES = 30
+TOOLS_MATCH_SOURCE = "synthetic://256x192:5:0.02"
+TOOLS_VOC_SOURCE = "synthetic://256x192:40"
+TOOLS_SOLVE_TOL = 1e-4
 
 
 def train_batch_poses():
@@ -2498,28 +2528,6 @@ def phase_reloc(dev, decoder):
 # phase 8: the pipelined facade on the bench's row
 # ----------------------------------------------------------------------------
 
-def bench_system(cam, decoder, dev, max_keyframes=PIPE_MAX_KEYFRAMES,
-                 dist_threshold=2.0, pipeline_depth=PIPE_DEPTH):
-    """tools/bench_e2e.py's ``build_system`` in the port: reprojection
-    factors and loop closure on, the shipped vocabulary."""
-    from deepfactors_tpu_torch.loop.vocabulary import default_vocabulary
-    from deepfactors_tpu_torch.mapping.mapper import MapperConfig
-    from deepfactors_tpu_torch.system import DeepFactors, SystemConfig
-
-    cfg = SystemConfig(
-        mapper=MapperConfig(
-            max_keyframes=max_keyframes, max_frames=2,
-            max_factors=4 * max_keyframes, code_size=32, height=H, width=W,
-            pyramid_levels=3, pho_iters=(4, 8, 15), connection_mode="LASTN",
-            max_back_connections=2, use_reprojection=True),
-        dist_threshold=dist_threshold,
-        tracking_dist_threshold=2.5 * dist_threshold,
-        frame_dist_threshold=0.12, loop_closure=True, loop_active_window=8,
-        loop_max_dist=0.35, pipeline_depth=pipeline_depth)
-    return DeepFactors(cfg, cam, decoder=decoder,
-                       vocabulary=default_vocabulary(device=dev), device=dev)
-
-
 def upload_check(dev, frames):
     """Frames uploaded through ``frame_step.upload_frame`` (pinned staging,
     non-blocking copies) behind a spin kernel, each host array dropped at
@@ -2568,6 +2576,7 @@ def run_pipelined(dev, decoder, tag, scene_seed=PIPE_SCENE_SEED,
     import torch
     from deepfactors_tpu_torch.geometry.camera import PinholeCamera
     from deepfactors_tpu_torch.io import synth
+    from deepfactors_tpu_torch.tools.bench_config import bench_system
     from deepfactors_tpu_torch.utils import tum_io
 
     cuda = dev != "cpu"
@@ -3258,23 +3267,16 @@ def phase_geo_system(dev):
 
 def device_kernel_time(fn):
     """(device µs, kernel count) of one call of ``fn``: the durations of the
-    CUDA kernels torch.profiler records, summed; (None, None) where it
-    records none. CUDA events around back-to-back calls do not time a call
-    of hundreds of small launches: the launch queue fills behind a spin
-    kernel, and the device then waits on the host."""
+    CUDA kernels torch.profiler records, summed (``tools/common.
+    kernel_time``); (None, None) on a CPU rehearsal. CUDA events around
+    back-to-back calls do not time a call of hundreds of small launches:
+    the launch queue fills behind a spin kernel, and the device then waits
+    on the host."""
     import torch
-    try:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ks = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    except Exception as e:      # no CUDA activity to record (a CPU run)
-        log(f"device_kernel_time: no device trace ({e!r})")
+    if not torch.cuda.is_available():
         return None, None
-    if not ks:
-        return None, None
-    return sum(e.time_range.elapsed_us() for e in ks), len(ks)
+    from deepfactors_tpu_torch.tools.common import kernel_time
+    return kernel_time(fn)
 
 
 def depth_prior_run(dev, pho_iters=(6, 6), max_steps=None):
@@ -3966,6 +3968,172 @@ def phase_train(dev):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# phase 12: the tools
+# ----------------------------------------------------------------------------
+
+def _rel_err(a, b):
+    import torch
+    a, b = torch.as_tensor(a).cpu().double(), torch.as_tensor(b).double()
+    return float((a - b).norm() / b.norm())
+
+
+def phase_tools(dev, decoder=None):
+    """Phase 12: every tool of deepfactors_tpu_torch/tools on the card, at
+    192x256 with room256_32v4 and CS 32, through each tool's ``main`` (its
+    command line) or, for the live viewer, its class: the files each writes,
+    and the numbers it computes against the same tool on the CPU. The
+    launch counts are set to 0 when 12a's facade starts and read at the
+    end. Returns them."""
+    import shutil
+
+    import torch
+    from deepfactors_tpu_torch.tools import (decode_image, kernel_benchmark,
+                                             live_viewer, profile_ba,
+                                             profile_dispatch, profile_event,
+                                             replay_viewer, result_viewer,
+                                             schur_crossover, test_matching,
+                                             voc_builder, voc_test)
+    from deepfactors_tpu_torch.tools.bench_config import load_bench_decoder
+
+    t_phase = time.perf_counter()
+    before = set(sys.modules)
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    d = lambda *p: os.path.join(TOOLS_DIR, *p)  # noqa: E731
+    say = lambda m: log(f"12 {m}")  # noqa: E731
+    decoder = decoder if decoder is not None else load_bench_decoder(dev)
+
+    # 12a: LiveViewer on phase 4's configuration, then the run directory
+    viewers = []
+    r = run_facade(dev, decoder, "12a", scene_seed=7,
+                   n_frames=TOOLS_LIVE_FRAMES, max_keyframes=32,
+                   max_factors=128, use_reprojection=True, time_parts=False,
+                   setup=lambda df: viewers.append(
+                       live_viewer.LiveViewer(d("live"), df)))
+    df, lv = r["df"], viewers[0]
+    assert r["tracked"] == 1.0, "12a lost frames"
+    with open(d("live", "viewer.html")) as f:
+        assert "http-equiv=\"refresh\"" in f.read(), "no live refresh tag"
+    lv.finish()
+    with open(d("live", "viewer.html")) as f:
+        assert "http-equiv=\"refresh\"" not in f.read()
+    n_kf = df.mapper._next_kid
+    kf_files = sorted(f for f in os.listdir(d("live")) if f.startswith("kf_"))
+    assert len(kf_files) == 2 * n_kf, (kf_files, n_kf)
+    with open(d("live", "trajectory.txt")) as f:
+        assert len(f.read().splitlines()) == len(df.trajectory)
+    df.save_results(d("run"))
+    assert replay_viewer.main([d("run"), "--device", dev]) == 0
+    assert os.path.getsize(d("run", "viewer.html")) > 100_000
+    assert result_viewer.main([d("run"), "--out", d("viewer"),
+                               "--device", dev]) == 0
+    out = sorted(os.listdir(d("viewer")))
+    assert sum(f.endswith("_depth_color.png") for f in out) == n_kf, out
+    assert "map.ply" in out
+    # trajectory.png is matplotlib's: written where it imports, else the
+    # viewer says so and writes the rest
+    have_mpl = any(m.split(".")[0] == "matplotlib" for m in sys.modules)
+    assert ("trajectory.png" in out) == have_mpl, out
+    say(f"viewers: {n_kf} keyframes of {TOOLS_LIVE_FRAMES} frames, live "
+        f"page refreshed during the run, replay page "
+        f"{os.path.getsize(d('run', 'viewer.html')) / 1e6:.2f} MB, result "
+        f"viewer files {out}")
+
+    # 12b: decode_image, the card against the CPU
+    dec = {x: decode_image.main(["synthetic", "--ntests", "10" if x == dev
+                                 else "1", "--out", d("decode", x),
+                                 "--device", x], log=say)
+           for x in (dev, "cpu")}
+    for k in ("prx_zero", "prx_predicted", "code"):
+        a, b = dec[dev][k], dec["cpu"][k]
+        err = float(np.abs(a - b).max() / np.abs(b).max())
+        assert np.isfinite(a).all() and err < DECODER_TOL, (k, err)
+    assert sorted(os.listdir(d("decode", dev))) == [
+        "depth_predicted_code.png", "depth_zero_code.png", "input.png"]
+
+    # 12c: test_matching
+    m = test_matching.main(["--source", TOOLS_MATCH_SOURCE, "--out",
+                            d("matches.png"), "--device", dev], log=say)
+    assert m["matches"] >= 20 and m["inliers"] >= 8, m
+    assert os.path.getsize(d("matches.png")) > 0
+
+    # 12d: voc_builder and voc_test on the card (k-means on the host); then
+    # voc_test with that vocabulary on the card and on the CPU over the same
+    # frames: the source's frames rendered on the CPU, as PNGs of a files://
+    # source (the card's render differs from the CPU's by up to ~3e-5,
+    # phase 10c, which moves keypoints and words: 1.3e-2 apart in BoW)
+    from deepfactors_tpu_torch.io import drivers, image_io
+    v = voc_builder.main(["--source", TOOLS_VOC_SOURCE, "--out",
+                          d("voc.npz"), "--device", dev], log=say)
+    with np.load(d("voc.npz")) as z:
+        assert sorted(z.files) == ["idf", "words"]
+        assert z["words"].dtype == np.uint32 and z["idf"].dtype == np.float32
+        assert np.array_equal(z["words"], v["words"])
+    voc_test.main(["--source", TOOLS_VOC_SOURCE, "--vocab", d("voc.npz"),
+                   "--device", dev], log=say)
+    os.makedirs(d("voc_frames"))
+    for i, fd in enumerate(drivers.get_interface_from_url(
+            TOOLS_VOC_SOURCE, device="cpu").frames()):
+        image_io.imwrite(d("voc_frames", f"{i:03d}.png"),
+                         (np.clip(fd.img, 0, 1) * 255 + 0.5).astype(np.uint8))
+    vt = {x: voc_test.main(["--source", "files://" + d("voc_frames"),
+                            "--vocab", d("voc.npz"), "--device", x], log=say)
+          for x in (dev, "cpu")}
+    bow_err = float(np.abs(vt[dev]["bow"] - vt["cpu"]["bow"]).max())
+    s_err = float(np.abs(vt[dev]["S"] - vt["cpu"]["S"]).max())
+    assert bow_err <= BOW_SIM_TOL and s_err <= BOW_SIM_TOL, (bow_err, s_err)
+
+    # 12e-12h: the benchmark and the profiles
+    on_card = dev != "cpu"
+    kb = kernel_benchmark.main(["--device", dev], log=say)
+    ba = profile_ba.main(["--device", dev], log=say)
+    disp = {mode: profile_dispatch.main([mode, "--device", dev], log=say)
+            for mode in ("main", "n0", "fixed")}
+    ev = profile_event.main(["--device", dev], log=say)
+    per_iter = [t / n * 1e3 for n, t in zip(disp["main"]["n"],
+                                            disp["main"]["seconds"])]
+    # the profiler traces each tool's rows (tools/common.kernel_time): a
+    # row it could not trace after its retries reads None and is listed
+    untraced = [k for k, t in [(f"{r['name']} B={r['batch']}", r)
+                               for r in kb] + list(ba.items())
+                + list(ev.items()) if not t["kernels"]]
+    if on_card:
+        assert all(any(t["kernels"] for t in rows) for rows in (
+            kb, ba.values(), ev.values())), untraced
+
+    # 12i: schur_crossover, the solutions against the CPU's
+    sc = schur_crossover.main(["--device", dev], log=say)
+    assert [r["K"] for r in sc] == list(schur_crossover.KS)
+    worst = 0.0
+    for K in schur_crossover.KS:
+        g, gc = (schur_crossover.build_system(K, device=x)
+                 for x in (dev, "cpu"))
+        lam, CS = schur_crossover.LAM, schur_crossover.CS
+        sysm = schur_crossover.sysm
+        for solve in (lambda s: sysm.solve_damped(s, lam),
+                      lambda s: sysm.solve_schur_codes(s, K, CS, lam)):
+            worst = max(worst, _rel_err(solve(g), solve(gc)))
+    assert worst < TOOLS_SOLVE_TOL, worst
+
+    launches = launch_counts()
+    assert all(n > 0 for n in launches.values()) or not on_card, launches
+    new = {m.split(".")[0] for m in set(sys.modules) - before}
+    assert "cv2" not in new, "a tool imported cv2"
+    say(f"card vs CPU: decode prx within {DECODER_TOL}; BoW vectors "
+        f"{bow_err:.2e}, scores {s_err:.2e}; solves {worst:.2e} (K = "
+        f"{schur_crossover.KS[0]}..{schur_crossover.KS[-1]}); a mapper run "
+        f"with no iteration {np.median(disp['n0'][0]):.2f} ms,"
+        f" a GN iteration {np.median(per_iter):.1f} ms on the host against "
+        f"{disp['main']['kernel_us']} us of kernels; rows the profiler did "
+        f"not trace {untraced}; launches "
+        f"{launches}; cv2 not imported, matplotlib "
+        f"{'imported' if have_mpl else 'not importable'}; phase 12 "
+        f"{time.perf_counter() - t_phase:.1f} s; "
+        f"{smi_line() if on_card else 'cpu'}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ptxas", action="store_true")
@@ -3973,6 +4141,8 @@ def main():
                     help="phases 1 (build), 3 (decoder) and 10 only")
     ap.add_argument("--only-train", action="store_true",
                     help="phases 1 (build) and 11 only")
+    ap.add_argument("--only-tools", action="store_true",
+                    help="phases 1 (build) and 12 only")
     args = ap.parse_args()
 
     import torch
@@ -4004,11 +4174,13 @@ def main():
         for src, v in build.build_log.items():
             log(f"--- {src}\n{v['ptxas']}")
 
-    if args.only_demo or args.only_train:
+    if args.only_demo or args.only_train or args.only_tools:
         if args.only_demo:
             out = {"demo_launches": phase_demo(dev, phase_decoder(dev))}
-        else:
+        elif args.only_train:
             out = {"train_launches": phase_train(dev)}
+        else:
+            out = {"tools_launches": phase_tools(dev)}
         log(json.dumps(out))
         log(smi)
         print(json.dumps({"ok": True, "device": {
@@ -4033,6 +4205,7 @@ def main():
     launches_refine = phase_refine(dev, decoder)
     launches_demo = phase_demo(dev, decoder)
     launches_train = phase_train(dev)
+    launches_tools = phase_tools(dev, decoder)
 
     meta = {
         "se3_gram_batch": ("deepfactors_tpu_torch/csrc/se3_gram.cu",
@@ -4062,7 +4235,8 @@ def main():
                    **{k: v[name] for k, v in parallel.items()},
                    "refine": launches_refine[name],
                    **{k: v[name] for k, v in launches_demo.items()},
-                   "trained_decoder": launches_train[name]}
+                   "trained_decoder": launches_train[name],
+                   "tools": launches_tools[name]}
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep,
                      "launches": launches[name] or par_total[name],

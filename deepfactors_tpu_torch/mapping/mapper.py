@@ -339,20 +339,7 @@ class Mapper:
         if victim not in self.kf_slots:
             raise ValueError(f"slot {victim} holds no live keyframe")
         self.marginalize_frames()   # frame factors reference keyframes
-        pool = self.sched.photo_pool
-        facs, neighbors = [], []
-        for i in range(self.cfg.max_factors):
-            if not pool.active[i] or pool.dst_is_frame[i]:
-                continue
-            s, d = int(pool.src[i]), int(pool.dst[i])
-            if victim not in (s, d):
-                continue
-            nb = d if s == victim else s
-            if nb not in self.kf_slots:
-                continue
-            if nb not in neighbors:
-                neighbors.append(nb)
-            facs.append((s, d, int(pool.level[i])))
+        facs, neighbors = self._victim_factors(victim)
         if facs:
             self._eliminate(victim, facs, neighbors)
         # archive the final pose before the slot is reused, as device
@@ -385,6 +372,26 @@ class Mapper:
             self.evict_callback(victim, kid)
         toc("kf:evict")
         return victim
+
+    def _victim_factors(self, victim: int):
+        """The live keyframe-to-keyframe photometric factors touching
+        ``victim``, as (src, dst, level), and its live neighbours in the
+        order they first appear."""
+        pool = self.sched.photo_pool
+        facs, neighbors = [], []
+        for i in range(self.cfg.max_factors):
+            if not pool.active[i] or pool.dst_is_frame[i]:
+                continue
+            s, d = int(pool.src[i]), int(pool.dst[i])
+            if victim not in (s, d):
+                continue
+            nb = d if s == victim else s
+            if nb not in self.kf_slots:
+                continue
+            if nb not in neighbors:
+                neighbors.append(nb)
+            facs.append((s, d, int(pool.level[i])))
+        return facs, neighbors
 
     def _eliminate(self, victim: int, facs, neighbors) -> None:
         """The device side of an eviction (the body of the JAX ``_evict_fn``):

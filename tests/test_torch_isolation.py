@@ -1,5 +1,6 @@
 """The port stands alone: no module of deepfactors_tpu_torch, and not
-chip_smoke.py, imports jax, flax or deepfactors_tpu, and none loads the
+chip_smoke.py, imports jax, flax, deepfactors_tpu, the JAX package's tools/
+or bench.py (nor cv2 or matplotlib when it is imported), and none loads the
 JAX package's native library (deepfactors_tpu/native_lib); and on CPU
 tensors the kernel wrappers run their plain versions, so the launch
 counters stay at 0."""
@@ -22,7 +23,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = r"""
 import importlib, pkgutil, sys
 class Blocker:
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "deepfactors_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "deepfactors_tpu", "tools",
+               "bench", "cv2", "matplotlib")
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in self.BLOCKED:
             raise ImportError("blocked import: " + name)
@@ -57,7 +59,14 @@ def test_port_and_chip_smoke_import_without_jax():
                 "io.drivers", "io.image_io", "io.sequences", "demo", "native",
                 "viz", "utils.checkpoint", "utils.interp",
                 "utils.profiling", "models.train_decoder",
-                "train_room_decoder"):
+                "train_room_decoder", "tools", "tools.common",
+                "tools.bench_config", "tools.replay_viewer",
+                "tools.result_viewer", "tools.live_viewer",
+                "tools.decode_image", "tools.test_matching",
+                "tools.voc_builder", "tools.voc_test",
+                "tools.kernel_benchmark", "tools.profile_ba",
+                "tools.profile_dispatch", "tools.profile_event",
+                "tools.schur_crossover"):
         assert "deepfactors_tpu_torch." + mod in seen, mod
 
 
