@@ -160,12 +160,39 @@ Phases, in order (any failure exits non-zero before the final line):
      stage); schur_crossover over K = 4..48 (both solutions of every system
      against the CPU's). Every kernel launched; no cv2 imported.
      ``--only-tools`` runs phases 1 and 12.
-Then a ``kernels`` JSON line, the nvidia-smi line, and as the last line
+  13. several ranks (after phase 12; no kernel of its own). A world of n
+     ranks runs NCCL with a card a rank where the machine has n cards, else
+     gloo with every rank on cuda:0 (NCCL cannot hold two ranks on one
+     card); each rank is a process of its own (``multihost.World``, a file
+     rendezvous), none forked. Each sub-phase prints its backend, world
+     and card count:
+     13a. ``tools.multihost_demo`` at production size (8 factors, K 8, CS
+     32, 192x256, 3 BA steps) over 2 ranks, each building only its factor
+     rows: the ranks' digests agree, and lie within MULTI_DEMO_TOL of one
+     process on the card and of JAX's digest (MULTI_DEMO_JAX);
+     dense_warp_batch once a step in each rank;
+     13b. ``dryrun.dryrun_matrix`` over worlds 1, 2 and 4 (the dry-run
+     problem sharded n ways): every world within 1e-4 of world 1, world 1
+     within MULTI_SAME_TOL of 6a's ``dryrun_single`` (the assembly sums
+     with float atomics, so not bit for bit);
+     13c. an NCCL group of one created and used on this card: the dry-run
+     system all_reduced bit for bit (and whether NCCL ran across cards);
+     13d. 6c's odometry over 2 ranks of 4 rooms (se3_gram_batch at P = 4
+     in each, with the launch plan of P = 8), every pose within
+     MULTI_ODO_TOL of 6c's one process;
+     13e. 11a's recipe step over 2 ranks of 4 rows against one process,
+     then MULTI_RECIPE_STEPS of 11c's recipe through ``train_room_decoder
+     --distributed`` (the nll falls, the ranks' parameters bit-identical),
+     ms per step at world 2 and world 1.
+     ``--only-multi`` runs phases 1 and 13.
+Then a ``kernels`` JSON line (``launches_by_path["multi"]``: phase 13's
+launches, summed over its ranks), the script's time, the nvidia-smi line,
+and as the last line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Run from the repository root:  python3 chip_smoke.py
 Options: --ptxas (print nvcc's register/shared-memory report); --only-demo;
---only-train; --only-tools.
+--only-train; --only-tools; --only-multi.
 """
 import argparse
 import json
@@ -656,6 +683,56 @@ TOOLS_LIVE_FRAMES = 30
 TOOLS_MATCH_SOURCE = "synthetic://256x192:5:0.02"
 TOOLS_VOC_SOURCE = "synthetic://256x192:40"
 TOOLS_SOLVE_TOL = 1e-4
+
+# Phase 13 (several ranks: parallel/multihost, tools/multihost_demo, the
+# dry-run matrix, scene-split odometry, data-parallel training). A world of
+# n ranks runs NCCL with a card a rank where the machine has n cards, else
+# gloo with every rank on cuda:0 (NCCL refuses two ranks on one card).
+MULTI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "phase13")
+MULTI_TIMEOUT_S = 300
+# JAX's digest of the same demo (tools/multihost_demo.py: 2 processes x 2
+# CPU devices, 8 factors at 192x256, CS 32, 3 steps; sum |pose_t|, the
+# last step's inliers), from `JAX_PLATFORMS=cpu python
+# tools/multihost_demo.py` on a CPU (the card has no JAX). The port's
+# digests are held to it and to one process within MULTI_DEMO_TOL: the
+# sum absolutely (the BA tolerance of tests/test_torch_parallel.py), the
+# inlier count relatively.
+MULTI_DEMO_JAX = (0.02116625, 385904.0)
+MULTI_DEMO_TOL = 1e-4
+MULTI_DRYRUN_WORLDS = (1, 2, 4)
+# 13b: world 1 (a process of its own) against 6a's dryrun_single here. Not
+# bit for bit: the assembly's index_put_(accumulate=True) / index_add_ sum
+# with float atomics on the card, so two runs in one process differ at
+# round-off too (on an NVIDIA H100 80GB HBM3, 700 W, world 1 read
+# 7.6e-9-1.9e-8 from it, two runs in one process 0-2.4e-9)
+MULTI_SAME_TOL = 1e-6
+# 13d: the poses of 2 ranks x 4 rooms against 6c's one process. Each rank
+# launches se3_gram_batch at P = 4 with the plan of P = 8 (plan_p): with its
+# own plan (3 pixels a thread at 192x256 against 6) a scene's sums ran in
+# another order and the poses drifted 1.6e-6 from one process over 30
+# frames (13d on an NVIDIA H100 80GB HBM3, 700 W)
+MULTI_ODO_TOL = 1e-6
+# 13e: 11a's step over 2 ranks of 4 rows against one process of 8, at the
+# limits of tests/test_torch_multihost.py, set over the spread it reads on
+# a CPU (in brackets): loss, nll, kl, distill relative 1e-5 (7.5e-8); the
+# gradient norm relative 5e-3 (6.6e-4), a leaf's gradient 1e-2 (2.55e-3)
+# and all together 5e-3 (1.6e-3) relative L2: a bf16 convolution's weight
+# gradient comes out rounded to bf16 (2^-9 relative) once per rank; the
+# parameters after the update within 2 lr. Apart by more than 0.1 lr (Adam's
+# first step is ~lr x sign(g), so a gradient element near 0 may flip): at
+# no more than 2e-3 of the elements, between this step's sound readings
+# (5.3e-4 on a CPU, 5.5e-4 on an NVIDIA H100 80GB HBM3, 700 W) and a
+# planted fault, a rank stepping on its own 4 rows with no reduce (0.169
+# and 0.180 of the elements for the two halves, on a CPU).
+MULTI_TRAIN_TERM_TOL = 1e-5
+MULTI_TRAIN_NORM_TOL = 5e-3
+MULTI_TRAIN_LEAF_TOL = 1e-2
+MULTI_TRAIN_ALL_TOL = 5e-3
+MULTI_TRAIN_FLIP_SHARE = 2e-3
+MULTI_RECIPE_STEPS = 50
+MULTI_RECIPE_ARGV = (["--steps", str(MULTI_RECIPE_STEPS)]
+                     + TRAIN_RECIPE_ARGV[2:])
 
 
 def train_batch_poses():
@@ -2028,20 +2105,24 @@ def phase_decoder(dev):
 # phases 4 and 5: end to end
 # ----------------------------------------------------------------------------
 
-def _kernel_modules():
-    from deepfactors_tpu_torch.ops.kernels import dense_warp as dw
-    from deepfactors_tpu_torch.ops.kernels import sfm_error as se
-    from deepfactors_tpu_torch.ops.kernels import sfm_gram as sg
-    return sg, se, dw
-
-
 def launch_counts():
-    return {k: v for m in _kernel_modules() for k, v in m.LAUNCHES.items()}
+    from deepfactors_tpu_torch.ops import kernels
+    return kernels.launch_counts()
 
 
 def reset_launch_counts():
-    for m in _kernel_modules():
-        m.reset_launch_counts()
+    from deepfactors_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+
+
+def sum_counts(counts):
+    """Launch counts (``launch_counts()`` dicts, one a rank or a part)
+    summed kernel by kernel."""
+    total = {}
+    for c in counts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def stat(v):
@@ -3018,43 +3099,51 @@ def odometry_setup(dev):
                 depth0=torch.tensor(np.stack(depth0), device=dev))
 
 
-def odometry_run(setup):
-    """6c: ``BatchedOdometry`` over the rooms of ``ODO`` in lockstep."""
+def odometry_run(setup, group=None):
+    """6c: ``BatchedOdometry`` over the rooms of ``ODO`` in lockstep (13d:
+    with ``group``, this rank's block of the rooms, the poses gathered).
+    Returns the launch counts and the poses [n, S, 7] (q, t) on the host."""
     import torch
     from deepfactors_tpu_torch.parallel import multi_seq
 
     c = ODO
     cam, true_t, frames = setup["cam"], setup["true_t"], setup["frames"]
     n, S = frames.shape[0] - 1, frames.shape[1]
+    sync = torch.cuda.synchronize if frames.is_cuda else (lambda: None)
     odo = multi_seq.BatchedOdometry(
         cam, levels=c["levels"], iters_per_level=c["iters_per_level"],
-        huber=c["huber"], kf_dist_threshold=c["kf_dist"])
+        huber=c["huber"], kf_dist_threshold=c["kf_dist"], group=group)
     reset_launch_counts()
     state = odo.init(frames[0], setup["depth0"])
-    errs, switches, ms = [], [], []
+    errs, switches, ms, poses = [], [], [], []
     for i in range(1, n + 1):
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         state, pose_wc, sw = odo.process(state, frames[i])
-        torch.cuda.synchronize()
+        sync()
         ms.append((time.perf_counter() - t0) * 1e3)
         assert torch.isfinite(pose_wc.q).all() and torch.isfinite(pose_wc.t).all()
         errs.append((pose_wc.t - true_t[i]).norm(dim=-1))
         switches.append(sw)
+        poses.append(torch.cat([pose_wc.q, pose_wc.t], dim=-1))
     launches = launch_counts()
-    assert launches["se3_gram_batch"] == n * sum(c["iters_per_level"]), launches
+    if frames.is_cuda:
+        assert launches["se3_gram_batch"] == n * sum(c["iters_per_level"]), \
+            launches
     errs = torch.stack(errs)
     rmse = errs.pow(2).mean(dim=0).sqrt().cpu().numpy()
     n_sw = torch.stack(switches).sum(dim=0).cpu().numpy()
     path = float((true_t[1:] - true_t[:-1]).norm(dim=-1).sum())
     r4 = lambda a: [round(float(x), 4) for x in a]
-    log(f"odometry: {S} scenes x {n} frames, {stat(ms)} per lockstep frame; "
-        f"translation rmse per scene {r4(rmse)} m over a path of {path:.3f} m, "
-        f"final error {r4(errs[-1])} m, keyframe switches per scene "
-        f"{n_sw.tolist()}")
+    log(f"odometry: {S} scenes x {n} frames"
+        + (f" over {odo.world} ranks (this one {odo.rank}, P = "
+           f"{S // odo.world})" if group is not None else "")
+        + f", {stat(ms)} per lockstep frame; translation rmse per scene "
+        f"{r4(rmse)} m over a path of {path:.3f} m, final error "
+        f"{r4(errs[-1])} m, keyframe switches per scene {n_sw.tolist()}")
     assert (n_sw >= 1).all(), "a scene never switched its keyframe"
     assert rmse.max() < ODO_RMSE_BOUND_M, f"odometry rmse {rmse}"
-    return launches
+    return launches, torch.stack(poses).cpu().numpy()
 
 
 # ----------------------------------------------------------------------------
@@ -3806,13 +3895,15 @@ def train_step_inputs():
     return tree, imgs, 2.0 / (2.0 + dpts), eps
 
 
-def train_step_run(dev, tree, imgs, gts, eps, time_it=False):
+def train_step_run(dev, tree, imgs, gts, eps, time_it=False, group=None):
     """One recipe step on ``dev`` from ``tree``; returns the loss and its
     terms, the gradients and the parameters after the update (on the CPU),
-    and the device ms of a step when ``time_it``."""
+    and the device ms of a step when ``time_it``. With ``group`` (13e) this
+    rank steps on its rows of the batch (eps stays the whole batch's)."""
     import torch
     from deepfactors_tpu_torch import configure_numerics
     from deepfactors_tpu_torch.models import train_decoder as td
+    from deepfactors_tpu_torch.parallel import multihost
 
     configure_numerics()
     hp = TRAIN_HP
@@ -3822,8 +3913,9 @@ def train_step_run(dev, tree, imgs, gts, eps, time_it=False):
     opt = td.OptaxAdam(m.parameters(), td.cosine_decay_schedule(
         hp["lr"], hp["decay_steps"], hp["alpha"]),
         weight_decay=hp["weight_decay"], clip_norm=hp["clip"])
-    step = td.make_train_step(m, opt, hp["beta"], hp["distill_w"])
-    args = [x.to(dev) for x in (imgs, gts, eps)]
+    step = td.make_train_step(m, opt, hp["beta"], hp["distill_w"], group)
+    rows = multihost.rank_rows(imgs.shape[0], *multihost.world_rank(group))
+    args = [x.to(dev) for x in (imgs[rows], gts[rows], eps)]
     loss, aux = step(*args)
     out = {k: float(v) for k, v in aux.items()}
     out["loss"] = float(loss)
@@ -4134,6 +4226,306 @@ def phase_tools(dev, decoder=None):
     return launches
 
 
+
+# ----------------------------------------------------------------------------
+# phase 13: several ranks
+# ----------------------------------------------------------------------------
+
+def multi_backend(n, dev):
+    """The backend of a world of ``n`` ranks: NCCL with a card a rank,
+    else gloo (on one card every rank sits on cuda:0: NCCL refuses two
+    ranks on one device). Chosen here and passed on; nothing falls back."""
+    import torch
+    if dev == "cpu":
+        return "gloo"
+    return "nccl" if torch.cuda.device_count() >= n else "gloo"
+
+
+def _cards(dev):
+    import torch
+    return torch.cuda.device_count() if dev != "cpu" else 0
+
+
+def _digest_values(line):
+    return [float(x) for x in line.split()[1:]]
+
+
+def _digest_close(a, b):
+    """sum |t| within MULTI_DEMO_TOL, the inlier count within
+    MULTI_DEMO_TOL of itself."""
+    return (abs(a[0] - b[0]) <= MULTI_DEMO_TOL
+            and abs(a[1] - b[1]) <= MULTI_DEMO_TOL * abs(b[1]))
+
+
+def phase_multi_demo(dev):
+    """13a: tools.multihost_demo at production size over 2 ranks, against
+    one process on the card and JAX's digest. Returns the ranks' launches
+    summed."""
+    from deepfactors_tpu_torch.tools import multihost_demo as md
+    backend = multi_backend(2, dev)
+    t0 = time.perf_counter()
+    r = md.main(["--nproc", "2", "--backend", backend, "--device", dev,
+                 "--timeout", str(MULTI_TIMEOUT_S)], log=lambda *a: None)
+    wall = time.perf_counter() - t0
+    assert r["ok"], "13a: the demo failed:\n" + "\n".join(r["outputs"])
+    ranks = [_digest_values(d) for d in r["digests"]]
+    q, t, c, stats = md.run_steps(8, 32, H, W, 8, dev)
+    one = _digest_values(md.digest(t, stats))
+    assert all(_digest_close(x, one) for x in ranks), (ranks, one)
+    assert all(_digest_close(x, MULTI_DEMO_JAX) for x in ranks), ranks
+    per_rank = [x["dense_warp_batch"] for x in r["launches"]]
+    if dev != "cpu":
+        assert len(r["launches"]) == 2 and per_rank == [md.STEPS] * 2, \
+            r["launches"]
+    red = r["reduce"]
+    log(f"13a multihost_demo: backend {backend}, world 2, {_cards(dev)} "
+        f"card(s); 8 factors at {H}x{W}, CS 32, {md.STEPS} steps; digests "
+        f"{r['digests']} (agree), one process {md.digest(t, stats)}, JAX "
+        f"{MULTI_DEMO_JAX} (within {MULTI_DEMO_TOL}); dense_warp_batch "
+        f"launches per rank {per_rank}; a step's all_reduce (H, b, stats: "
+        f"{red[0]['bytes']} bytes) {[round(x['ms'], 3) for x in red]} ms "
+        f"per rank (host, median of 20); {wall:.1f} s with the ranks' "
+        f"start; {smi_line() if dev != 'cpu' else 'cpu'}")
+    return sum_counts(r["launches"])
+
+
+def phase_multi_dryrun(dev):
+    """13b: the dry-run matrix over MULTI_DRYRUN_WORLDS, every world within
+    1e-4 of world 1, and world 1 within MULTI_SAME_TOL of 6a's
+    ``dryrun_single`` in this process (whose own two runs are read beside
+    it)."""
+    from deepfactors_tpu_torch.parallel import dryrun
+    backend = multi_backend(max(MULTI_DRYRUN_WORLDS), dev)
+    t0 = time.perf_counter()
+    devs, res = dryrun.dryrun_matrix(MULTI_DRYRUN_WORLDS, tol=1e-4,
+                                     backend=backend, device=dev,
+                                     timeout_s=MULTI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    single = [dict(zip("qtc", dryrun.dryrun_single(dev))) for _ in range(2)]
+    first = res[MULTI_DRYRUN_WORLDS[0]]
+    d1 = max(float(np.abs(first[k] - single[0][k]).max()) for k in "qtc")
+    again = max(float(np.abs(single[1][k] - single[0][k]).max())
+                for k in "qtc")
+    assert d1 <= MULTI_SAME_TOL, f"world 1 parts from dryrun_single by {d1}"
+    launches = {n: r["launches"] for n, r in res.items()}
+    dwb = {n: [x["dense_warp_batch"] for x in c] for n, c in launches.items()}
+    if dev != "cpu":
+        assert all(x == [1] * n for n, x in dwb.items()), launches
+    log(f"13b dry-run matrix: backend {backend}, worlds "
+        f"{list(MULTI_DRYRUN_WORLDS)}, {_cards(dev)} card(s): deviation "
+        f"from world 1 {devs} (tol 1e-4); world 1 against dryrun_single "
+        f"{d1:.3e} (tol {MULTI_SAME_TOL}), dryrun_single against itself "
+        f"{again:.3e}; dense_warp_batch launches per rank {dwb}; "
+        f"{wall:.1f} s with the ranks' start")
+    return sum_counts(x for c in launches.values() for x in c)
+
+
+def phase_multi_nccl(dev):
+    """13c: an NCCL group created and used on this card: a world of one
+    all_reduces the dry-run system (H, b, stats), which must come back bit
+    for bit."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from deepfactors_tpu_torch.parallel import dist_ba, dryrun, multihost
+    cards = _cards(dev)
+    with tempfile.TemporaryDirectory(prefix="df_nccl_") as tmp:
+        multihost.initialize("file://" + os.path.join(tmp, "rendezvous"),
+                             1, 0, backend="nccl", device=dev)
+        try:
+            backend = dist.get_backend()
+            cam, params, fd, q, t, c, _ = dryrun.dryrun_problem(
+                multihost.local_device())
+            reset_launch_counts()
+            system = dist_ba.local_system(q, t, c, fd, dryrun.K, dryrun.CS,
+                                          cam, params)
+            launches = launch_counts()
+            before = [x.clone() for x in system]
+            for x in system:
+                dist.all_reduce(x, group=multihost.global_group())
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(system, before))
+        finally:
+            multihost.shutdown()
+    assert backend == "nccl" and same, (backend, same)
+    assert launches["dense_warp_batch"] == 1, launches
+    across = ("NCCL across cards: not run (1 card)" if cards < 2 else
+              f"NCCL across cards: 13a (world 2) and 13b (worlds "
+              f"{[n for n in MULTI_DRYRUN_WORLDS if n <= cards]}) ran on "
+              f"NCCL over {cards} cards")
+    log(f"13c NCCL: backend {backend}, world 1, {cards} card(s): the "
+        f"dry-run system (H {tuple(system[0].shape)}, b, stats) "
+        f"all_reduced bit for bit; {across}; launches {launches}")
+    return launches
+
+
+def multi_rank_data(dev):
+    """13d and 13e's inputs, written once for the ranks: 6c's frames and
+    depths (rendered here), 11a's parameter tree, batch and eps."""
+    import torch
+    setup = odometry_setup(dev)
+    tree, imgs, gts, eps = train_step_inputs()
+    data = {"frames": setup["frames"].cpu(), "depth0": setup["depth0"].cpu(),
+            "true_t": setup["true_t"].cpu(), "tree": tree, "imgs": imgs,
+            "gts": gts, "eps": eps}
+    os.makedirs(MULTI_DIR, exist_ok=True)
+    path = os.path.join(MULTI_DIR, "rank_data.pt")
+    torch.save(data, path)
+    return setup, data, path
+
+
+def rank_task(args):
+    """A rank of phase 13's world of 13d and 13e (started by
+    ``multihost.World`` as ``chip_smoke.py --rank-task ...``): 6c's
+    odometry over the world, 11a's step on this rank's rows, then
+    MULTI_RECIPE_STEPS of 11c's recipe through ``train_room_decoder
+    --distributed``; writes what it read to ``--rank-out``.rank<r>.pt,
+    with the rank's kernel launches from the odometry's start (where
+    ``odometry_run`` sets the counts to 0) to the recipe's end."""
+    import torch
+    from deepfactors_tpu_torch import train_room_decoder as trd
+    from deepfactors_tpu_torch.parallel import multihost
+    multihost.initialize(args.coord, args.nproc, args.proc_id,
+                         backend=args.backend, device=args.rank_device)
+    try:
+        dev = multihost.local_device()
+        group = multihost.global_group()
+        data = torch.load(args.rank_data, weights_only=False)
+        setup = dict(cam=_smoke_camera(), frames=data["frames"].to(dev),
+                     depth0=data["depth0"].to(dev),
+                     true_t=data["true_t"].to(dev))
+        odo_launches, poses = odometry_run(setup, group)
+        step = train_step_run(dev, data["tree"], data["imgs"], data["gts"],
+                              data["eps"], group=group)
+        out = os.path.join(MULTI_DIR, "room256_p13")
+        recipe = trd.main(MULTI_RECIPE_ARGV + ["--distributed", "--device",
+                                               args.rank_device, "--out",
+                                               out], log=log)
+        launches = launch_counts()
+        torch.save({"odo_launches": odo_launches, "launches": launches,
+                    "poses": poses, "step": step, "nll": recipe["nll"],
+                    "step_ms": recipe["step_ms"], "world": recipe["world"],
+                    "device": str(dev)},
+                   f"{args.rank_out}.rank{args.proc_id}.pt")
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def _train_spread(a, b):
+    """World n against one process: the terms (relative), every leaf's
+    gradient and all together (relative L2), the parameters after the
+    update (the largest difference over lr, the share of elements apart by
+    more than 0.1 lr)."""
+    terms = {k: abs(a[k] - b[k]) / abs(b[k])
+             for k in ("loss", "nll", "kl", "distill", "grad_norm")}
+    leaf = {n: float((a["grads"][n] - g).norm() / g.norm())
+            for n, g in b["grads"].items()}
+    num = sum(float((a["grads"][n] - g).norm()) ** 2
+              for n, g in b["grads"].items())
+    den = sum(float(g.norm()) ** 2 for g in b["grads"].values())
+    lr = TRAIN_HP["lr"]
+    diffs = [(a["params"][n] - p).abs() for n, p in b["params"].items()]
+    moved = max(float(d.max()) for d in diffs) / lr
+    far = sum(int((d > 0.1 * lr).sum()) for d in diffs) / sum(
+        d.numel() for d in diffs)
+    return terms, leaf, (num / den) ** 0.5, moved, far
+
+
+def phase_multi_ranks(dev):
+    """13d and 13e in one world of 2 ranks, each against one process on
+    this device. Returns the ranks' launches summed."""
+    import torch
+    from deepfactors_tpu_torch import train_room_decoder as trd
+    from deepfactors_tpu_torch.parallel import multihost
+    backend = multi_backend(2, dev)
+    setup, data, path = multi_rank_data(dev)
+    # one process first, the card to itself: 6c's odometry, 11a's step and
+    # the recipe, each what the world is held against
+    _, poses1 = odometry_run(setup)
+    step1 = train_step_run(dev, data["tree"], data["imgs"], data["gts"],
+                           data["eps"])
+    one = trd.main(MULTI_RECIPE_ARGV + ["--device", dev, "--out",
+                                        os.path.join(MULTI_DIR,
+                                                     "room256_p13_one")],
+                   log=lambda *a: None)
+    t0 = time.perf_counter()
+    outs = multihost.World(
+        [sys.executable, os.path.abspath(__file__), "--rank-task",
+         "--rank-data", path, "--rank-out", os.path.join(MULTI_DIR, "ranks"),
+         "--rank-device", dev, "--backend", backend], 2).wait(MULTI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for r, (rc, out) in enumerate(outs):
+        assert rc == 0, f"13d/13e: rank {r} exited {rc}:\n{out}"
+    ranks = [torch.load(os.path.join(MULTI_DIR, f"ranks.rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    cards = _cards(dev)
+    # 13d
+    poses2 = ranks[0]["poses"]
+    assert all(np.array_equal(x["poses"], poses2) for x in ranks)
+    d_odo = float(np.abs(poses2 - poses1).max())
+    assert d_odo <= MULTI_ODO_TOL, f"13d: poses {d_odo} from one process"
+    odo = [x["odo_launches"]["se3_gram_batch"] for x in ranks]
+    log(f"13d odometry: backend {backend}, world 2, {cards} card(s), "
+        f"{ODO['frames']} frames of {len(ODO['scene_seeds'])} rooms, 4 a "
+        f"rank (se3_gram_batch at P = 4): every pose within {d_odo:.3e} of "
+        f"6c's one process (tol {MULTI_ODO_TOL}"
+        + ("; bit-equal" if d_odo == 0 else "; not bit-equal") + "; each "
+        f"rank launches with the plan of P = 8, plan_p); "
+        f"se3_gram_batch launches per rank {odo}")
+    # 13e, one step
+    for k in ("grads", "params"):
+        for n, v in ranks[0]["step"][k].items():
+            assert torch.equal(v, ranks[1]["step"][k][n]), (k, n)
+    terms, leaf, all_rel, moved, far = _train_spread(ranks[0]["step"], step1)
+    worst = max(leaf, key=leaf.get)
+    assert max(terms[k] for k in ("loss", "nll", "kl", "distill")) <= \
+        MULTI_TRAIN_TERM_TOL, terms
+    assert terms["grad_norm"] <= MULTI_TRAIN_NORM_TOL, terms
+    assert leaf[worst] <= MULTI_TRAIN_LEAF_TOL, (worst, leaf[worst])
+    assert all_rel <= MULTI_TRAIN_ALL_TOL, all_rel
+    assert moved <= 2.0 * 1.001 and far <= MULTI_TRAIN_FLIP_SHARE, (moved,
+                                                                    far)
+    # 13e, the recipe
+    nll = ranks[0]["nll"]
+    assert all(np.array_equal(x["nll"], nll) for x in ranks)
+    assert nll[-10:].mean() < nll[:10].mean(), nll
+    w2 = np.median(ranks[0]["step_ms"][TRAIN_WARM_STEPS:])
+    w1 = np.median(one["step_ms"][TRAIN_WARM_STEPS:])
+    log(f"13e data-parallel training: backend {backend}, world 2, {cards} "
+        f"card(s). One recipe step (11a's: batch 8 at {H}x{W}, 4 rows a "
+        f"rank) against one process: terms "
+        + ", ".join(f"{k} {v:.2e}" for k, v in terms.items())
+        + f" (tol {MULTI_TRAIN_TERM_TOL}, the norm {MULTI_TRAIN_NORM_TOL}); "
+        f"gradients all {all_rel:.2e} (tol {MULTI_TRAIN_ALL_TOL}), worst "
+        f"leaf {worst} {leaf[worst]:.2e} (tol {MULTI_TRAIN_LEAF_TOL}); "
+        f"parameters after the update within {moved:.3f} lr, {far:.2e} of "
+        f"the elements apart by more than 0.1 lr (tol 2 lr, "
+        f"{MULTI_TRAIN_FLIP_SHARE}); the two ranks' "
+        f"gradients and parameters bit-identical. {MULTI_RECIPE_STEPS} "
+        f"steps of 11c's recipe over the world: nll {nll[:10].mean():.4f} "
+        f"(steps 0-9) -> {nll[-10:].mean():.4f} (last 10), parameters "
+        f"bit-identical over the ranks; ms per step (CUDA events, median "
+        f"after {TRAIN_WARM_STEPS}) world 2 {w2:.3f}, world 1 {w1:.3f} "
+        f"(a reading); {wall:.1f} s; {smi_line() if dev != 'cpu' else 'cpu'}")
+    return sum_counts(x["launches"] for x in ranks)
+
+
+def phase_multi(dev):
+    """Phase 13: 13a-13e (13c only on a card). Returns the launches of the
+    phase: every rank's, summed, with 13c's world of one in this process
+    (the one-process runs the ranks are held against are not counted)."""
+    t_phase = time.perf_counter()
+    parts = [phase_multi_demo, phase_multi_dryrun, phase_multi_ranks]
+    if dev != "cpu":
+        parts.insert(2, phase_multi_nccl)
+    total = sum_counts([f(dev) for f in parts])
+    assert set(total) == set(launch_counts()), total
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s; launches "
+        f"summed over the ranks {total}")
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ptxas", action="store_true")
@@ -4143,7 +4535,21 @@ def main():
                     help="phases 1 (build) and 11 only")
     ap.add_argument("--only-tools", action="store_true",
                     help="phases 1 (build) and 12 only")
+    ap.add_argument("--only-multi", action="store_true",
+                    help="phases 1 (build) and 13 only")
+    # a rank of phase 13's world (what multihost.World starts)
+    ap.add_argument("--rank-task", action="store_true",
+                    help=argparse.SUPPRESS)
+    for flag in ("--rank-data", "--rank-out", "--rank-device", "--backend",
+                 "--coord"):
+        ap.add_argument(flag, help=argparse.SUPPRESS)
+    for flag in ("--nproc", "--proc-id"):
+        ap.add_argument(flag, type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    t_start = time.perf_counter()
+    if args.rank_task:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return rank_task(args)
 
     import torch
     if not torch.cuda.is_available():
@@ -4174,14 +4580,17 @@ def main():
         for src, v in build.build_log.items():
             log(f"--- {src}\n{v['ptxas']}")
 
-    if args.only_demo or args.only_train or args.only_tools:
+    if args.only_demo or args.only_train or args.only_tools or args.only_multi:
         if args.only_demo:
             out = {"demo_launches": phase_demo(dev, phase_decoder(dev))}
         elif args.only_train:
             out = {"train_launches": phase_train(dev)}
-        else:
+        elif args.only_tools:
             out = {"tools_launches": phase_tools(dev)}
+        else:
+            out = {"multi_launches": phase_multi(dev)}
         log(json.dumps(out))
+        log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
         log(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4197,7 +4606,7 @@ def main():
     launches = phase_long_run(dev, decoder)
     parallel = {"dry_run": phase_dryrun(dev),
                 "large_map": large_map_run(large_map_setup(dev, decoder)),
-                "odometry": odometry_run(odometry_setup(dev))}
+                "odometry": odometry_run(odometry_setup(dev))[0]}
     par_total = {k: sum(p[k] for p in parallel.values()) for k in launches}
     assert par_total["dense_warp_batch"] > 0 < par_total["bilinear_warp_planes"]
     phase_geo_system(dev)
@@ -4206,6 +4615,7 @@ def main():
     launches_demo = phase_demo(dev, decoder)
     launches_train = phase_train(dev)
     launches_tools = phase_tools(dev, decoder)
+    launches_multi = phase_multi(dev)
 
     meta = {
         "se3_gram_batch": ("deepfactors_tpu_torch/csrc/se3_gram.cu",
@@ -4236,7 +4646,8 @@ def main():
                    "refine": launches_refine[name],
                    **{k: v[name] for k, v in launches_demo.items()},
                    "trained_decoder": launches_train[name],
-                   "tools": launches_tools[name]}
+                   "tools": launches_tools[name],
+                   "multi": launches_multi[name]}
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep,
                      "launches": launches[name] or par_total[name],
@@ -4252,6 +4663,7 @@ def main():
                                           "in_context")
                         if k in r}})
     log(json.dumps({"kernels": rows}))
+    log(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

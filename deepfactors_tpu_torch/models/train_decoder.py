@@ -32,11 +32,13 @@ from typing import Callable, Iterator, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import configure_numerics
 from ..geometry import warping as wp
+from ..parallel.multihost import rank_rows, world_rank
 from .decoder import (Conv, ConvBlock, Dense, DepthDecoder, NetworkConfig,
                       _gelu, init_flax_defaults, params_from_jax,
                       params_to_jax)
@@ -201,31 +203,71 @@ class OptaxAdam(torch.optim.Optimizer):
 
 
 def make_train_step(model: VAEModel, opt: OptaxAdam, beta: float = 1e-4,
-                    distill_w: float = 0.1):
+                    distill_w: float = 0.1, group=None):
     """One training step over a batch: ``step(imgs, gts, eps=None,
     generator=None) -> (loss, aux)``, device scalars (aux: nll, kl,
-    distill, and grad_norm, the global norm before clipping)."""
+    distill, and grad_norm, the global norm before clipping).
+
+    With a ``torch.distributed`` group (the counterpart of the JAX
+    ``train(mesh=)``, which shards the batch axis over devices) every rank
+    steps on its own rows of a batch of B: imgs, gts [B / world, H, W],
+    rank r holding rows r * B / world onwards. ``eps`` is always the whole
+    batch's [B, CS] (drawn from ``generator``, seeded alike on every rank,
+    when not given), of which each rank takes its rows, so a world of any
+    size draws what one process draws. The gradients are summed by one
+    ``all_reduce`` of a flat buffer and divided by the world size before
+    the optimiser's step: the clip sees the one-process global norm and
+    every rank applies the same update. The loss and its terms come back
+    averaged over the group (in the same buffer). Not DDP: it would rename
+    the state-dict keys under ``module.``."""
+    world, rank = world_rank(group)
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def step(imgs: Tensor, gts: Tensor, eps: Optional[Tensor] = None,
              generator: Optional[torch.Generator] = None):
         opt.zero_grad(set_to_none=True)
-        loss, aux = vae_loss(model, imgs, gts, beta, distill_w, eps,
-                             generator)
+        if eps is None:
+            eps = torch.randn((imgs.shape[0] * world, model.code_size),
+                              generator=generator, device=imgs.device)
+        loss, aux = vae_loss(model, imgs, gts, beta, distill_w,
+                             eps[rank_rows(eps.shape[0], world, rank)])
         loss.backward()
+        if world > 1:
+            loss, aux = _all_reduce_mean(params, loss, aux, world, group)
         aux["grad_norm"] = opt.step()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     return step
 
 
+def _all_reduce_mean(params, loss, aux, world, group):
+    """Replace every gradient by its mean over the group, and return the
+    loss and its terms averaged: one ``all_reduce`` of one flat buffer."""
+    grads = [p.grad for p in params if p.grad is not None]
+    keys = sorted(aux)
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [torch.stack([loss.detach()]
+                                    + [aux[k].detach() for k in keys])])
+    dist.all_reduce(flat, group=group)
+    flat /= world
+    at = 0
+    for g in grads:
+        g.copy_(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    return flat[at], {k: flat[at + 1 + i] for i, k in enumerate(keys)}
+
+
 def train(cfg: NetworkConfig, data_iter: Iterator, num_steps: int = 1000,
           lr: float = 1e-3, beta: float = 1e-4, seed: int = 0,
-          log_every: int = 100, device="cuda", log=print):
+          log_every: int = 100, device="cuda", log=print, group=None):
     """Train from flax's default init with clip + adam; returns the decoder
     parameters in the JAX layout (for ``Decoder`` / ``save_params``) and
     the loss every ``log_every`` steps. ``data_iter`` yields (imgs, depths)
     [B, H, W] numpy arrays. The model is the JAX ``train``'s:
-    ``VAEModel(cfg.code_size, cfg.pyramid_levels)``."""
+    ``VAEModel(cfg.code_size, cfg.pyramid_levels)``. With a
+    ``torch.distributed`` group (the JAX ``mesh=``) every rank takes its
+    rows of each batch (``make_train_step``); B must divide by the world
+    size, and every rank reads the same ``data_iter``."""
     configure_numerics()
     dev = torch.device(device)
     model = VAEModel(cfg.code_size, cfg.pyramid_levels,
@@ -233,13 +275,14 @@ def train(cfg: NetworkConfig, data_iter: Iterator, num_steps: int = 1000,
     init_flax_defaults(model, torch.Generator().manual_seed(seed))
     model.to(dev).train()
     opt = OptaxAdam(model.parameters(), lr, clip_norm=1.0)
-    step_fn = make_train_step(model, opt, beta)
+    step_fn = make_train_step(model, opt, beta, group=group)
     gen = torch.Generator(device=dev).manual_seed(seed)
     history = []
     for i in range(num_steps):
         imgs, depths = next(data_iter)
-        imgs = torch.as_tensor(imgs, device=dev)
-        gts = wp.depth_to_prox(torch.as_tensor(depths, device=dev),
+        rows = rank_rows(imgs.shape[0], *world_rank(group))
+        imgs = torch.as_tensor(imgs[rows], device=dev)
+        gts = wp.depth_to_prox(torch.as_tensor(depths[rows], device=dev),
                                cfg.avg_dpt)
         loss, aux = step_fn(imgs, gts, generator=gen)
         if i % log_every == 0:

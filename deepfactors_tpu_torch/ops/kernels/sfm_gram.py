@@ -498,7 +498,7 @@ def empty_launch(device) -> None:
 
 
 def _se3_gram_cuda(params, src, dst, img0_pool, dpt_pool, img1_pool,
-                   gx1_pool, gy1_pool, active, grad_mode):
+                   gx1_pool, gy1_pool, active, grad_mode, plan_p=None):
     dev = img0_pool.device
     P = src.shape[0]
     K, H, W = img0_pool.shape
@@ -520,9 +520,9 @@ def _se3_gram_cuda(params, src, dst, img0_pool, dpt_pool, img1_pool,
         _check(gy1_pool, "gy1_pool", f32, (K1, H, W), dev)
     else:
         gx1_pool = gy1_pool = None
-    plan = launch_plan("se3_gram_batch", P, H, W)
+    plan = launch_plan("se3_gram_batch", plan_p or P, H, W)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    part = torch.empty(plan.part_shape, dtype=f32, device=dev)
+    part = torch.empty((P,) + plan.part_shape[1:], dtype=f32, device=dev)
     G = torch.empty((P, 8, 8), dtype=f32, device=dev)
     lib = _lib("se3_gram.cu", "se3_gram_launch", "se3_gram_error_string",
                12, 8)
@@ -608,16 +608,25 @@ def _route(t: Tensor) -> str:
 
 def se3_gram_batch(params, src, dst, img0_pool, dpt_pool, img1_pool,
                    gx1_pool=None, gy1_pool=None, active=None,
-                   grad_mode="sampled") -> Tensor:
+                   grad_mode="sampled", plan_p=None) -> Tensor:
     """Fused SE(3) tracking linearisation: G [P, 8, 8].
 
     params [P, PARAM_DIM] (make_sfm_params), src/dst [P] int32 slots into
     the keyframe pools img0/dpt [K, H, W] and the live pools
     img1(/gx1/gy1) [K1, H, W]; active [P] (0 = G is zero; None: every
-    factor active)."""
+    factor active). ``plan_p`` (default P) is the factor count whose
+    launch plan the kernel takes: a factor's sums run in the order of its
+    plan's strips, so a caller that splits one batch over several ranks
+    passes the whole batch's count and each factor's G comes out as one
+    launch over the whole batch gives it (the plain twin's rows never
+    depend on P). It costs: at P = 4 with the plan of 8 at 192x256, twice
+    the pixels a thread and half the blocks, a launch reads 12.2-12.4 µs
+    against 9.9-10.0 with its own plan, and the same at 96x128 and 48x64
+    (NVIDIA H100 80GB HBM3, 700 W; ``port_tools/odometry_plan_cost.py``)."""
     if _route(img0_pool) == "cuda":
         return _se3_gram_cuda(params, src, dst, img0_pool, dpt_pool,
-                              img1_pool, gx1_pool, gy1_pool, active, grad_mode)
+                              img1_pool, gx1_pool, gy1_pool, active, grad_mode,
+                              plan_p)
     return se3_gram_batch_plain(params, src, dst, img0_pool, dpt_pool,
                                 img1_pool, gx1_pool, gy1_pool, active,
                                 grad_mode)

@@ -21,6 +21,19 @@ tool's keys and the held-out depth RMSEs), and ``<out>.ckpt.pkl`` every
 
 ``--device`` defaults to cuda and stops without a card; ``--device cpu``
 runs on the CPU.
+
+Data-parallel over the ranks of a ``torch.distributed`` world (the JAX
+``train(mesh=)``), started by ``torchrun``:
+
+    torchrun --nproc-per-node N -m deepfactors_tpu_torch.train_room_decoder \
+        --distributed [flags]
+
+Every rank renders the dataset on its own card, draws every batch index,
+augmentation and noise of the whole batch from its generator (seeded
+alike), steps on its rows (``--batch`` must divide by N) and averages the
+gradients over the world (``models.train_decoder.make_train_step``), so
+the ranks hold the same parameters at every step; the run checks that they
+are bit-identical at its end. Only rank 0 evaluates and writes files.
 """
 from __future__ import annotations
 
@@ -133,22 +146,27 @@ def apply_augment(imgs, vals, noise, blur_on):
 def make_augment(strength="mild"):
     """``augment(imgs [B, H, W], generator) -> imgs``: draws each sample's
     seven uniforms, a noise field and the blur coin from ``generator``,
-    then ``apply_augment``. Applied to the training batch only."""
+    then ``apply_augment``. Applied to the training batch only. A rank of
+    a data-parallel world passes ``batch`` (the whole batch's size) and
+    ``rows`` (its rows of it, which imgs holds): the draws are made for the
+    whole batch and its rows taken, as one process draws them."""
     A = AUG[strength]
     lo = [A["gamma"][0], A["gain"][0], -A["bias"], -A["ramp"], -A["ramp"],
           0.0, 0.0]
     hi = [A["gamma"][1], A["gain"][1], A["bias"], A["ramp"], A["ramp"],
           A["vig"], A["noise"]]
 
-    def augment(imgs, generator):
-        B, dev = imgs.shape[0], imgs.device
+    def augment(imgs, generator, batch=None, rows=slice(None)):
+        B, dev = batch or imgs.shape[0], imgs.device
         lo_t = torch.tensor(lo, device=dev)
         hi_t = torch.tensor(hi, device=dev)
         u = torch.rand((B, 7), generator=generator, device=dev)
-        noise = torch.randn(imgs.shape, generator=generator, device=dev)
+        noise = torch.randn((B,) + imgs.shape[1:], generator=generator,
+                            device=dev)
         blur_on = torch.rand((B,), generator=generator,
                              device=dev) < A["blur_p"]
-        return apply_augment(imgs, lo_t + u * (hi_t - lo_t), noise, blur_on)
+        return apply_augment(imgs, (lo_t + u * (hi_t - lo_t))[rows],
+                             noise[rows], blur_on[rows])
 
     return augment
 
@@ -215,6 +233,9 @@ def parse_args(argv):
     ap.add_argument("--scale-hi", type=float, default=2.2,
                     help="room size_scale randomization upper bound")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--distributed", action="store_true",
+                    help="data-parallel over the ranks that torchrun "
+                         "started (a card a rank)")
     return ap.parse_args(argv)
 
 
@@ -223,7 +244,9 @@ def main(argv=None, log=print) -> dict:
     of every step, the loss of each logged step, the step times (ms; CUDA
     events between steps on the card, the host clock on the CPU), the peak
     device memory of training (bytes, the card only), the held-out means
-    and the paths written."""
+    and the paths written. With ``--distributed`` also this process's rank
+    and the world size; a rank other than 0 returns before evaluating
+    (``val`` None) and writes nothing."""
     from . import configure_numerics
     from .geometry import warping as wp
     from .geometry.camera import PinholeCamera
@@ -233,12 +256,19 @@ def main(argv=None, log=print) -> dict:
                                        cosine_decay_schedule,
                                        extract_decoder_params,
                                        make_train_step)
+    from .parallel import multihost
 
     args = parse_args(sys.argv[1:] if argv is None else list(argv))
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but no CUDA device is available "
                            "(pass --device cpu to run on the CPU)")
+    group, rank, world = None, 0, 1
+    if args.distributed:
+        multihost.initialize(device=args.device)
+        dev, group = multihost.local_device(), multihost.global_group()
+        rank, world = multihost.process_index(), multihost.process_count()
+    rows = multihost.rank_rows(args.batch, world, rank)
     on_card = dev.type == "cuda"
     configure_numerics()
     cam = PinholeCamera.create(fx=FOCAL, fy=FOCAL, u0=W / 2, v0=H / 2,
@@ -272,7 +302,7 @@ def main(argv=None, log=print) -> dict:
     opt = OptaxAdam(model.parameters(),
                     cosine_decay_schedule(args.lr, args.steps, alpha=0.1),
                     weight_decay=1e-4, clip_norm=1.0)
-    step_fn = make_train_step(model, opt, args.beta, args.distill_w)
+    step_fn = make_train_step(model, opt, args.beta, args.distill_w, group)
     aug_fn = make_augment(args.aug_strength) if args.randomize else None
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -287,10 +317,11 @@ def main(argv=None, log=print) -> dict:
         host = [time.perf_counter()]
     t0 = time.time()
     for i in range(args.steps):
-        idx = torch.randint(0, n, (args.batch,), generator=gen, device=dev)
+        idx = torch.randint(0, n, (args.batch,), generator=gen,
+                            device=dev)[rows]
         bi, bg = imgs[idx], gts[idx]
         if aug_fn is not None:
-            bi = aug_fn(bi, gen)
+            bi = aug_fn(bi, gen, args.batch, rows)
         loss, aux = step_fn(bi, bg, generator=gen)
         nll[i] = aux["nll"]
         if on_card:
@@ -304,7 +335,7 @@ def main(argv=None, log=print) -> dict:
                 f"kl={float(aux['kl']):.2f} "
                 f"distill={float(aux['distill']):.3f} "
                 f"({(time.time() - t0):.0f}s)")
-        if i > 0 and i % CKPT_EVERY == 0:
+        if i > 0 and i % CKPT_EVERY == 0 and rank == 0:
             os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
             save_params(args.out + ".ckpt.pkl", extract_decoder_params(model))
     if on_card:
@@ -318,7 +349,23 @@ def main(argv=None, log=print) -> dict:
     warm = step_ms[min(10, len(step_ms) - 1):]
     log(f"trained {args.steps} steps in {train_s:.1f} s on {dev}: ms per "
         f"step median {np.median(warm):.3f} (after 10)"
-        + (f", peak device memory {peak / 2**20:.1f} MiB" if on_card else ""))
+        + (f", peak device memory {peak / 2**20:.1f} MiB" if on_card else "")
+        + (f"; rank {rank} of {world}" if group is not None else ""))
+    summary = {"nll": nll.cpu().numpy(), "logged": logged,
+               "step_ms": step_ms, "peak_bytes": peak, "val": None,
+               "dataset_s": dataset_s, "train_s": train_s, "frames": n,
+               "out": args.out, "rank": rank, "world": world}
+    if group is not None:
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in model.parameters()])
+        ref = flat.clone()
+        torch.distributed.broadcast(ref, 0, group=group)
+        if not torch.equal(ref, flat):
+            raise RuntimeError(f"rank {rank}'s parameters differ from rank "
+                               f"0's after {args.steps} steps")
+        log(f"parameters bit-identical over {world} ranks")
+        if rank != 0:
+            return summary
 
     dec_params = extract_decoder_params(model)
     decoder = Decoder(cfg, params=dec_params, device=dev)
@@ -346,10 +393,11 @@ def main(argv=None, log=print) -> dict:
             "val_prox_rmse_pred_code": round(float(mean[3]), 4),
         }, f, indent=1)
     log(f"saved {args.out}.pkl")
-    return {"nll": nll.cpu().numpy(), "logged": logged, "step_ms": step_ms,
-            "peak_bytes": peak, "val": mean, "dataset_s": dataset_s,
-            "train_s": train_s, "frames": n, "out": args.out}
+    summary["val"] = mean
+    return summary
 
 
 if __name__ == "__main__":
     main()
+    from .parallel import multihost
+    multihost.shutdown()

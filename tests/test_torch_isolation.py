@@ -50,10 +50,10 @@ def test_port_and_chip_smoke_import_without_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     seen = r.stdout.strip().splitlines()[-1].split()
-    assert len(seen) >= 36                                # every module seen
+    assert len(seen) >= 78                                # every module seen
     for mod in ("ops.kernels.dense_warp", "ops.kernels.sfm_error",
                 "parallel.dist_ba", "parallel.large_map",
-                "parallel.multi_seq", "parallel.dryrun",
+                "parallel.multi_seq", "parallel.dryrun", "parallel.multihost",
                 "loop.vocabulary", "loop.loop_detector",
                 "features.sampler", "config", "io.preprocess",
                 "io.drivers", "io.image_io", "io.sequences", "demo", "native",
@@ -66,7 +66,7 @@ def test_port_and_chip_smoke_import_without_jax():
                 "tools.voc_builder", "tools.voc_test",
                 "tools.kernel_benchmark", "tools.profile_ba",
                 "tools.profile_dispatch", "tools.profile_event",
-                "tools.schur_crossover"):
+                "tools.schur_crossover", "tools.multihost_demo"):
         assert "deepfactors_tpu_torch." + mod in seen, mod
 
 

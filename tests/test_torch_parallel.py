@@ -179,9 +179,9 @@ from deepfactors_tpu_torch.ops import dense_sfm as ds
 from deepfactors_tpu_torch.parallel import large_map
 
 torch.set_num_threads(1)
-root, path, port, world, rank = sys.argv[1:6]
+root, path, rendezvous, world, rank = sys.argv[1:6]
 world, rank = int(world), int(rank)
-dist.init_process_group("gloo", init_method="tcp://localhost:" + port,
+dist.init_process_group("gloo", init_method="file://" + rendezvous,
                         world_size=world, rank=rank)
 d = np.load(path)
 t = lambda k: torch.from_numpy(d[k])
@@ -200,6 +200,7 @@ ba = large_map.LargeMapBA(K, CS, cam, params, pose_prior=0.05,
 poses, codes, _ = ba.run(prob, iters=2)
 np.savez(path + ".out%d.npz" % rank, q=poses.q.numpy(), t=poses.t.numpy(),
          c=codes.numpy())
+dist.barrier()
 dist.destroy_process_group()
 """
 
@@ -217,10 +218,10 @@ def test_two_gloo_ranks_match_one_process(the_map, tmp_path):
     np.savez(path, images=images, prx0=prx0, jac=jac, stdev=stdev, grads=grads,
              q=tc["poses"].q.numpy(), t=tc["poses"].t.numpy(),
              codes=tc["codes"].numpy(), links=np.array(links))
-    port = str(29500 + os.getpid() % 2000)
+    rendezvous = str(tmp_path / "rendezvous")   # a file store, fresh per test
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     procs = [subprocess.Popen([sys.executable, "-c", _RANK_SCRIPT, ROOT, path,
-                               port, "2", str(r)], env=env,
+                               rendezvous, "2", str(r)], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for r in range(2)]
     try:
