@@ -185,6 +185,13 @@ Phases, in order (any failure exits non-zero before the final line):
      --distributed`` (the nll falls, the ranks' parameters bit-identical),
      ms per step at world 2 and world 1.
      ``--only-multi`` runs phases 1 and 13.
+  14. the tracer's clock (after phase 13; utils/timing.py): spans around
+     one dense_warp_batch launch each (P = 124, 192x256), queued behind a
+     spin, under a profiler session: each end of a span's device interval
+     (CUDA events placed on the host clock by the tracer's anchor) within
+     TRACE_TOL_US of the kernel's CUPTI record, and its host start within
+     TRACE_TOL_US of its record_function mirror's. ``--only-trace`` runs
+     phases 1 and 14.
 Then a ``kernels`` JSON line (``launches_by_path["multi"]``: phase 13's
 launches, summed over its ranks), the script's time, the nvidia-smi line,
 and as the last line
@@ -192,7 +199,7 @@ and as the last line
 
 Run from the repository root:  python3 chip_smoke.py
 Options: --ptxas (print nvcc's register/shared-memory report); --only-demo;
---only-train; --only-tools; --only-multi.
+--only-train; --only-tools; --only-multi; --only-trace.
 """
 import argparse
 import json
@@ -4526,6 +4533,86 @@ def phase_multi(dev):
     return total
 
 
+TRACE_REPS = 20             # spans timed around one dense_warp_batch each
+TRACE_TOL_US = 50.0         # each end of the device interval; host start
+TRACE_SPIN_CYCLES = 4_000_000   # ~2 ms of spin queued before each span
+
+
+def phase_trace(dev):
+    """Phase 14: the tracer's clock (utils/timing.py). Under a profiler
+    session, TRACE_REPS spans, each around one dense_warp_batch launch at
+    one chunk of the large map (P = 124, 192x256) queued behind a spin:
+    each end of the span's device interval lies within TRACE_TOL_US of the
+    kernel's CUPTI record (so the interval holds the kernel up to that
+    disagreement of the two clocks), and its host start within
+    TRACE_TOL_US of its record_function mirror's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.ops.kernels import dense_warp as dw
+    from deepfactors_tpu_torch.utils import timing
+    t_phase = time.perf_counter()
+    P, H, W = 124, 192, 256
+    g = torch.Generator(device=dev).manual_seed(14)
+    d = 0.01 * torch.randn((P, 6), generator=g, device=dev)
+    pose = se3m.retract(se3m.identity((P,), device=dev), d)
+    kp = dw.make_warp_params(pose, _smoke_camera(), 2, 0.0)
+    dpt = 2.0 + 0.1 * torch.rand((P, H, W), generator=g, device=dev)
+    img, gx, gy = (torch.rand((P, H, W), generator=g, device=dev)
+                   for _ in range(3))
+    for _ in range(5):
+        dw.dense_warp_batch(kp, dpt, img, gx, gy)
+    torch.cuda.synchronize()
+    timing.reset_timing()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with timing.span("trace.anchor"):    # the anchor, before the spins
+            pass
+        for _ in range(TRACE_REPS):
+            # queued behind a spin, the span's events run right before and
+            # after the kernel: their gaps to its record are the clocks'
+            # disagreement, not the host's launch time
+            torch.cuda._sleep(TRACE_SPIN_CYCLES)
+            with timing.span("trace.check"):
+                dw.dense_warp_batch(kp, dpt, img, gx, gy)
+            torch.cuda.synchronize()
+    recs = [r for r in timing.spans() if r.name == "trace.check"]
+    kernels, mirrors = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and \
+                not e.is_user_annotation() and \
+                "dense_warp_kernel" in e.name():
+            kernels.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif e.device_type() == DeviceType.CPU and \
+                e.name() == "trace.check":
+            mirrors.append(e.start_ns())
+    kernels.sort()
+    mirrors.sort()
+    assert len(recs) == len(kernels) == len(mirrors) == TRACE_REPS, \
+        (len(recs), len(kernels), len(mirrors))
+    lead, lag, host = [], [], []
+    for r, (ks, ke), m in zip(recs, kernels, mirrors):
+        lead.append((ks - r.dev_start_ns) / 1e3)
+        lag.append((r.dev_end_ns - ke) / 1e3)
+        host.append((m - r.host_start_ns) / 1e3)
+    us = lambda v: (f"min {min(v):.2f} median {np.median(v):.2f} max "
+                    f"{max(v):.2f} us")
+    out = {"lead_us": lead, "lag_us": lag, "host_us": host,
+           "kernel_us": [(e - s) / 1e3 for s, e in kernels]}
+    log(f"phase 14: the span's device start before the kernel's: "
+        f"{us(lead)}; its device end after the kernel's: {us(lag)}; the "
+        f"record_function's start after its host start: {us(host)}; the "
+        f"kernel {us(out['kernel_us'])}")
+    for a, b, c in zip(lead, lag, host):
+        assert abs(a) <= TRACE_TOL_US and abs(b) <= TRACE_TOL_US, \
+            (lead, lag)
+        assert abs(c) <= TRACE_TOL_US, host
+    timing.reset_timing()
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ptxas", action="store_true")
@@ -4537,6 +4624,8 @@ def main():
                     help="phases 1 (build) and 12 only")
     ap.add_argument("--only-multi", action="store_true",
                     help="phases 1 (build) and 13 only")
+    ap.add_argument("--only-trace", action="store_true",
+                    help="phases 1 (build) and 14 only")
     # a rank of phase 13's world (what multihost.World starts)
     ap.add_argument("--rank-task", action="store_true",
                     help=argparse.SUPPRESS)
@@ -4580,15 +4669,18 @@ def main():
         for src, v in build.build_log.items():
             log(f"--- {src}\n{v['ptxas']}")
 
-    if args.only_demo or args.only_train or args.only_tools or args.only_multi:
+    if args.only_demo or args.only_train or args.only_tools or \
+            args.only_multi or args.only_trace:
         if args.only_demo:
             out = {"demo_launches": phase_demo(dev, phase_decoder(dev))}
         elif args.only_train:
             out = {"train_launches": phase_train(dev)}
         elif args.only_tools:
             out = {"tools_launches": phase_tools(dev)}
-        else:
+        elif args.only_multi:
             out = {"multi_launches": phase_multi(dev)}
+        else:
+            out = {"trace": phase_trace(dev)}
         log(json.dumps(out))
         log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
         log(smi)
@@ -4616,6 +4708,7 @@ def main():
     launches_train = phase_train(dev)
     launches_tools = phase_tools(dev, decoder)
     launches_multi = phase_multi(dev)
+    phase_trace(dev)
 
     meta = {
         "se3_gram_batch": ("deepfactors_tpu_torch/csrc/se3_gram.cu",

@@ -83,7 +83,7 @@ def run(argv, on_system=None, log=print):
     from .models.decoder import Decoder, load_params
     from .system import DeepFactors
     from .utils import tum_io
-    from .utils.timing import enable_timing, timing_summary
+    from .utils.timing import enable_timing, reset_timing, timing_summary
 
     flags = cfgm.parse_args(list(argv))
     device = torch.device(flags.pop("device", "cuda"))
@@ -95,7 +95,9 @@ def run(argv, on_system=None, log=print):
                                                 "df_run"))
     init_on_start = flags.get("init_on_start", "true").lower() != "false"
     frame_limit = int(flags.get("frame_limit", 0))
-    if _flag_true(flags, "enable_timing", "false"):
+    timing = _flag_true(flags, "enable_timing", "false")
+    if timing:
+        reset_timing()
         enable_timing(True)
 
     cam_iface = drivers.get_interface_from_url(source, device=device)
@@ -209,8 +211,13 @@ def run(argv, on_system=None, log=print):
             ate = tum_io.ate_rmse(pairs, [(ts, gt_by_ts[ts])
                                           for ts, _ in pairs])
             log(f"ATE RMSE: {ate:.4f} m")
-    for k, v in timing_summary().items():
-        log(f"[timing] {k}: avg {v['avg_ms']:.2f} ms x{v['count']}")
+    if timing:
+        enable_timing(False)
+        for k, v in timing_summary().items():
+            dev = (f"; device {v['dev_ms']:.2f} ms, self "
+                   f"{v['dev_self_ms']:.2f}" if "dev_ms" in v else "")
+            log(f"[timing] {k}: x{v['count']}, host {v['host_ms']:.2f} ms, "
+                f"self {v['host_self_ms']:.2f}{dev}")
     summary = dict(
         frames=n_frames, seconds=dt, keyframes=len(df.mapper.kf_slots),
         keyframes_built=df.mapper._next_kid, lost=df.n_lost_frames,

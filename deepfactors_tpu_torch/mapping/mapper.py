@@ -84,7 +84,7 @@ from ..ops.kernels import sfm_gram as sg
 from ..solver import system as sysm
 from ..solver.nearest_psd import nearest_psd
 from ..tracking.tracker import TrackerConfig, track_c2f
-from ..utils.timing import tic, toc
+from ..utils.timing import span
 from . import factors as fct
 from . import frames as fr
 from . import map_state as ms
@@ -335,42 +335,41 @@ class Mapper:
         code directions) and injects unbounded priors. Cross-neighbour
         information blocks are dropped (the marginal store is block-diagonal
         per keyframe)."""
-        tic("kf:evict")
-        if victim not in self.kf_slots:
-            raise ValueError(f"slot {victim} holds no live keyframe")
-        self.marginalize_frames()   # frame factors reference keyframes
-        facs, neighbors = self._victim_factors(victim)
-        if facs:
-            self._eliminate(victim, facs, neighbors)
-        # archive the final pose before the slot is reused, as device
-        # tensors: a host read here would stall every eviction; readers
-        # (dump_state) copy at the end of a run. Clones, since the pools are
-        # written in place.
-        kid = next((k for k, v in self.kf_ids.items() if v == victim), -1)
-        self.archived.append({"id": kid,
-                              "q": self.state.pose.q[victim].clone(),
-                              "t": self.state.pose.t[victim].clone()})
-        self.sched.erase_keyframe(victim)
-        for li, pair in list(self.links_host):
-            if victim in pair:
-                self.links_host.remove((li, pair))
-                self._link_free.append(li)
-                ms.remove_link(self.state, li)
-        was_anchor = self.kf_slots[0] == victim
-        self.kf_slots.remove(victim)
-        if kid >= 0:
-            del self.kf_ids[kid]
-        self.state.active[victim] = False
-        mg.clear(self.marginals, victim)
-        if was_anchor and self.kf_slots:
-            # re-anchor the gauge prior on the new oldest keyframe at its
-            # current estimate (gauge continuity)
-            a = self.kf_slots[0]
-            self._anchor_pose = SE3(self.state.pose.q[a].clone(),
-                                    self.state.pose.t[a].clone())
-        if self.evict_callback is not None:
-            self.evict_callback(victim, kid)
-        toc("kf:evict")
+        with span("kf.evict"):
+            if victim not in self.kf_slots:
+                raise ValueError(f"slot {victim} holds no live keyframe")
+            self.marginalize_frames()   # frame factors reference keyframes
+            facs, neighbors = self._victim_factors(victim)
+            if facs:
+                self._eliminate(victim, facs, neighbors)
+            # archive the final pose before the slot is reused, as device
+            # tensors: a host read here would stall every eviction; readers
+            # (dump_state) copy at the end of a run. Clones, since the pools
+            # are written in place.
+            kid = next((k for k, v in self.kf_ids.items() if v == victim), -1)
+            self.archived.append({"id": kid,
+                                  "q": self.state.pose.q[victim].clone(),
+                                  "t": self.state.pose.t[victim].clone()})
+            self.sched.erase_keyframe(victim)
+            for li, pair in list(self.links_host):
+                if victim in pair:
+                    self.links_host.remove((li, pair))
+                    self._link_free.append(li)
+                    ms.remove_link(self.state, li)
+            was_anchor = self.kf_slots[0] == victim
+            self.kf_slots.remove(victim)
+            if kid >= 0:
+                del self.kf_ids[kid]
+            self.state.active[victim] = False
+            mg.clear(self.marginals, victim)
+            if was_anchor and self.kf_slots:
+                # re-anchor the gauge prior on the new oldest keyframe at its
+                # current estimate (gauge continuity)
+                a = self.kf_slots[0]
+                self._anchor_pose = SE3(self.state.pose.q[a].clone(),
+                                        self.state.pose.t[a].clone())
+            if self.evict_callback is not None:
+                self.evict_callback(victim, kid)
         return victim
 
     def _victim_factors(self, victim: int):
@@ -507,57 +506,58 @@ class Mapper:
         jac_pyr, stdev_pyr, code) with each jac level feature-major
         [CS, h, w] (the JAX mapper's ``pyramids``, in the port's layout):
         no decoder runs."""
-        tic("kf:build")
-        cfg, dev = self.cfg, self.device
-        CS = cfg.code_size
-        if pyramids is not None:
-            img_pyr, grad_pyr, prx0, jac, stdev, code = pyramids
-            pyramids_in = (img_pyr, grad_pyr)
-        img_pyr, grad_pyr = (pyramids_in if pyramids_in is not None
-                             else self._pyramids(img))
-        slot = self._alloc_kf_slot()
-        pose = SE3(torch.as_tensor(pose.q, dtype=torch.float32, device=dev),
-                   torch.as_tensor(pose.t, dtype=torch.float32, device=dev))
-        with_code = code is not None
-        if pyramids is not None:
-            kf_code = torch.as_tensor(code, dtype=torch.float32, device=dev)
-        elif self.decoder is not None:
-            out = self.decoder.raw_outputs_T(img_pyr[0])
-            prx0, jac, stdev = out["prx0"], out["jac"], out["stdev"]
-            if with_code:
-                kf_code = torch.as_tensor(code, dtype=torch.float32, device=dev)
-            else:
-                # fold the predicted code into prx0 and re-zero: the zero-code
-                # prior then anchors depth at the prediction. Gate: keep the
-                # prediction only if it warps at least as well as the zero
-                # code against the newest keyframe (absent at bootstrap).
-                c = out["code_pred"]
-                prx_pred = tuple(p + torch.einsum("chw,c->hw", j, c)
-                                 for p, j in zip(prx0, jac))
-                if self.kf_slots:
-                    gs = self.kf_slots[-1]
-                    e_pred, e_zero = self._gate_errors(
-                        (prx_pred[0], prx0[0]), pose, img_pyr[0], gs)
-                    use_pred = e_pred <= e_zero
-                    prx0 = tuple(torch.where(use_pred, a, b)
-                                 for a, b in zip(prx_pred, prx0))
+        with span("kf.build"):
+            cfg, dev = self.cfg, self.device
+            CS = cfg.code_size
+            if pyramids is not None:
+                img_pyr, grad_pyr, prx0, jac, stdev, code = pyramids
+                pyramids_in = (img_pyr, grad_pyr)
+            img_pyr, grad_pyr = (pyramids_in if pyramids_in is not None
+                                 else self._pyramids(img))
+            slot = self._alloc_kf_slot()
+            f32 = dict(dtype=torch.float32, device=dev)
+            pose = SE3(torch.as_tensor(pose.q, **f32),
+                       torch.as_tensor(pose.t, **f32))
+            with_code = code is not None
+            if pyramids is not None:
+                kf_code = torch.as_tensor(code, **f32)
+            elif self.decoder is not None:
+                out = self.decoder.raw_outputs_T(img_pyr[0])
+                prx0, jac, stdev = out["prx0"], out["jac"], out["stdev"]
+                if with_code:
+                    kf_code = torch.as_tensor(code, **f32)
                 else:
-                    prx0 = prx_pred
-                kf_code = torch.zeros((CS,), device=dev)
-        else:
-            prx0 = tuple(torch.full_like(im, 0.5) for im in img_pyr)
-            jac = tuple(torch.zeros((CS,) + im.shape, device=dev)
-                        for im in img_pyr)
-            stdev = tuple(torch.zeros_like(im) for im in img_pyr)
-            kf_code = (torch.as_tensor(code, dtype=torch.float32, device=dev)
-                       if with_code else torch.zeros((CS,), device=dev))
-        features = self._detect(img_pyr) if cfg.use_reprojection else None
-        ms.add_keyframe(self.state, slot, pose, kf_code, img_pyr, grad_pyr,
-                        prx0, jac, stdev, cfg.avg_dpt, features=features)
-        self.kf_slots.append(slot)
-        self.kf_ids[self._next_kid] = slot
-        self._next_kid += 1
-        toc("kf:build")
+                    # fold the predicted code into prx0 and re-zero: the
+                    # zero-code prior then anchors depth at the prediction.
+                    # Gate: keep the prediction only if it warps at least as
+                    # well as the zero code against the newest keyframe
+                    # (absent at bootstrap).
+                    c = out["code_pred"]
+                    prx_pred = tuple(p + torch.einsum("chw,c->hw", j, c)
+                                     for p, j in zip(prx0, jac))
+                    if self.kf_slots:
+                        gs = self.kf_slots[-1]
+                        e_pred, e_zero = self._gate_errors(
+                            (prx_pred[0], prx0[0]), pose, img_pyr[0], gs)
+                        use_pred = e_pred <= e_zero
+                        prx0 = tuple(torch.where(use_pred, a, b)
+                                     for a, b in zip(prx_pred, prx0))
+                    else:
+                        prx0 = prx_pred
+                    kf_code = torch.zeros((CS,), device=dev)
+            else:
+                prx0 = tuple(torch.full_like(im, 0.5) for im in img_pyr)
+                jac = tuple(torch.zeros((CS,) + im.shape, device=dev)
+                            for im in img_pyr)
+                stdev = tuple(torch.zeros_like(im) for im in img_pyr)
+                kf_code = (torch.as_tensor(code, **f32)
+                           if with_code else torch.zeros((CS,), device=dev))
+            features = self._detect(img_pyr) if cfg.use_reprojection else None
+            ms.add_keyframe(self.state, slot, pose, kf_code, img_pyr, grad_pyr,
+                            prx0, jac, stdev, cfg.avg_dpt, features=features)
+            self.kf_slots.append(slot)
+            self.kf_ids[self._next_kid] = slot
+            self._next_kid += 1
         return slot
 
     # -- enqueue API (mapper.cpp:164-392) --------------------------------------
@@ -638,10 +638,10 @@ class Mapper:
     def _detect(self, img_pyr) -> det.Features:
         """The keyframe's keypoints (scale-space detection over its image
         pyramid)."""
-        tic("kf:detect")
-        f = det.detect_pyramid(
-            img_pyr, det.DetectorConfig(max_keypoints=self.cfg.max_keypoints))
-        toc("kf:detect")
+        with span("kf.detect"):
+            f = det.detect_pyramid(
+                img_pyr,
+                det.DetectorConfig(max_keypoints=self.cfg.max_keypoints))
         return f
 
     def enqueue_keyframe(self, img, pose_init: SE3, code=None,
@@ -721,21 +721,19 @@ class Mapper:
         surviving matches (df_work.cpp:316-347)."""
         if not slot_pairs:
             return lambda: None
-        tic("kf:rep-dispatch")
-        out = self._rep_pairs(slot_pairs)
-        toc("kf:rep-dispatch")
+        with span("kf.rep_dispatch"):
+            out = self._rep_pairs(slot_pairs)
 
         def finish():
-            tic("kf:rep-finish")
-            packed = out.cpu().numpy()
-            kp0s, kp1s = packed[..., 0:2], packed[..., 2:4]
-            valids = packed[..., 4] > 0.5
-            dirs = [d for a, b in slot_pairs for d in ((a, b), (b, a))]
-            for d, (a, b) in enumerate(dirs):
-                if valids[d].sum() >= 8:
-                    self.sched.add_rep(a, b, self.cfg.rep_iters, kp0s[d],
-                                       kp1s[d], valids[d])
-            toc("kf:rep-finish")
+            with span("kf.rep_finish"):
+                packed = out.cpu().numpy()
+                kp0s, kp1s = packed[..., 0:2], packed[..., 2:4]
+                valids = packed[..., 4] > 0.5
+                dirs = [d for a, b in slot_pairs for d in ((a, b), (b, a))]
+                for d, (a, b) in enumerate(dirs):
+                    if valids[d].sum() >= 8:
+                        self.sched.add_rep(a, b, self.cfg.rep_iters, kp0s[d],
+                                           kp1s[d], valids[d])
 
         return finish
 
@@ -847,27 +845,26 @@ class Mapper:
                    if self.frame_active_host[s] and not self.frame_marg_host[s]]
         if not victims:
             return
-        tic("kf:margfr")
-        pool = self.sched.photo_pool
-        E = self.cfg.max_frames
-        kfs = np.zeros(E, np.int64)
-        fss = np.zeros(E, np.int64)
-        lvls = np.zeros(E, np.int64)
-        act = np.zeros(E, bool)
-        j = 0
-        for s in victims:
-            for i in range(self.cfg.max_factors):
-                if (pool.active[i] and pool.dst_is_frame[i]
-                        and pool.dst[i] == s and j < E):
-                    kfs[j], fss[j] = int(pool.src[i]), s
-                    lvls[j], act[j] = int(pool.level[i]), True
-                    j += 1
-        self._fold_frames(kfs, fss, lvls, act)
-        for s in victims:
-            self.frame_marg_host[s] = True
-            self.frames.marginalized[s] = True
-            self.sched.erase_frame(s)
-        toc("kf:margfr")
+        with span("kf.margfr"):
+            pool = self.sched.photo_pool
+            E = self.cfg.max_frames
+            kfs = np.zeros(E, np.int64)
+            fss = np.zeros(E, np.int64)
+            lvls = np.zeros(E, np.int64)
+            act = np.zeros(E, bool)
+            j = 0
+            for s in victims:
+                for i in range(self.cfg.max_factors):
+                    if (pool.active[i] and pool.dst_is_frame[i]
+                            and pool.dst[i] == s and j < E):
+                        kfs[j], fss[j] = int(pool.src[i]), s
+                        lvls[j], act[j] = int(pool.level[i]), True
+                        j += 1
+            self._fold_frames(kfs, fss, lvls, act)
+            for s in victims:
+                self.frame_marg_host[s] = True
+                self.frames.marginalized[s] = True
+                self.sched.erase_frame(s)
 
     def _fold_frames(self, kfs, fss, lvls, act):
         """Linearise every live frame factor at its level, Schur-eliminate
@@ -1160,21 +1157,20 @@ class Mapper:
         ``mapping_step``. Drives the same Work state machine either way."""
         segs = self._fused_segments()
         if segs is None:
-            tic("map:step")
-            self.mapping_step()
-            toc("map:step")
+            with span("map.step"):
+                self.mapping_step()
             return
-        tic("map:segments")
-        self._bookkeeping()
-        pool, descent = self._compact_pool(extra=self.sched.descent_slots())
-        self.run_segments(pool, descent, segs)
-        # every segment ran to completion (early exit skips iterations, never
-        # a level), so the host schedule replay exhausts each budget
-        for _, seg_budget in segs:
-            self.sched.update(seg_budget, False)
+        with span("map.segments"):
             self._bookkeeping()
-        self.sched.update(0, False)  # sweep remove_after works
-        toc("map:segments")
+            pool, descent = self._compact_pool(
+                extra=self.sched.descent_slots())
+            self.run_segments(pool, descent, segs)
+            # every segment ran to completion (early exit skips iterations,
+            # never a level), so the host schedule replay exhausts each budget
+            for _, seg_budget in segs:
+                self.sched.update(seg_budget, False)
+                self._bookkeeping()
+            self.sched.update(0, False)  # sweep remove_after works
 
     def mapping_step(self):
         """One mapping phase: GN iterations until the next schedule boundary

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from .. import configure_numerics
 from ..geometry import warping as wp
 from ..parallel.multihost import rank_rows, world_rank
+from ..utils.timing import span
 from .decoder import (Conv, ConvBlock, Dense, DepthDecoder, NetworkConfig,
                       _gelu, init_flax_defaults, params_from_jax,
                       params_to_jax)
@@ -219,23 +220,28 @@ def make_train_step(model: VAEModel, opt: OptaxAdam, beta: float = 1e-4,
     the optimiser's step: the clip sees the one-process global norm and
     every rank applies the same update. The loss and its terms come back
     averaged over the group (in the same buffer). Not DDP: it would rename
-    the state-dict keys under ``module.``."""
+    the state-dict keys under ``module.``. Three spans tile the step:
+    ``train.forward`` (with eps), ``train.backward`` (with the
+    ``all_reduce``) and ``train.optimiser`` (clip and AdamW)."""
     world, rank = world_rank(group)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(imgs: Tensor, gts: Tensor, eps: Optional[Tensor] = None,
              generator: Optional[torch.Generator] = None):
-        opt.zero_grad(set_to_none=True)
-        if eps is None:
-            eps = torch.randn((imgs.shape[0] * world, model.code_size),
-                              generator=generator, device=imgs.device)
-        loss, aux = vae_loss(model, imgs, gts, beta, distill_w,
-                             eps[rank_rows(eps.shape[0], world, rank)])
-        loss.backward()
-        if world > 1:
-            loss, aux = _all_reduce_mean(params, loss, aux, world, group)
-        aux["grad_norm"] = opt.step()
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+        with span("train.forward"):
+            opt.zero_grad(set_to_none=True)
+            if eps is None:
+                eps = torch.randn((imgs.shape[0] * world, model.code_size),
+                                  generator=generator, device=imgs.device)
+            loss, aux = vae_loss(model, imgs, gts, beta, distill_w,
+                                 eps[rank_rows(eps.shape[0], world, rank)])
+        with span("train.backward"):
+            loss.backward()
+            if world > 1:
+                loss, aux = _all_reduce_mean(params, loss, aux, world, group)
+        with span("train.optimiser"):
+            aux["grad_norm"] = opt.step()
+            return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     return step
 

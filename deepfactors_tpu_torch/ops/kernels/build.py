@@ -21,6 +21,8 @@ import threading
 import time
 from pathlib import Path
 
+from ...utils.timing import span
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = ("se3_gram.cu", "sfm_gram.cu", "sfm_error.cu", "dense_warp.cu")
 NVCC_FLAGS = (
@@ -67,16 +69,23 @@ def _lib_path(source: str) -> Path:
 
 def build_all(ptxas_verbose: bool = False) -> float:
     """Compile every source whose library is missing, one ``nvcc`` per
-    source, all started together. Returns the wall seconds; raises with
-    the compiler's output if any build fails."""
+    source, all started together, in a ``kernels.build`` span. Returns the
+    wall seconds; raises with the compiler's output if any build fails."""
     t0 = time.perf_counter()
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
+    todo = [src for src in SOURCES
+            if ptxas_verbose or not _lib_path(src).exists()]
+    if todo:
+        with span("kernels.build"):
+            _compile(todo, ptxas_verbose)
+    return time.perf_counter() - t0
+
+
+def _compile(sources, ptxas_verbose: bool):
     procs = []
-    for src in SOURCES:
+    for src in sources:
         lib = _lib_path(src)
-        if lib.exists() and not ptxas_verbose:
-            continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
         if ptxas_verbose:
@@ -95,7 +104,6 @@ def build_all(ptxas_verbose: bool = False) -> float:
         os.replace(tmp, lib)
     if errors:
         raise RuntimeError("\n".join(errors))
-    return time.perf_counter() - t0
 
 
 def library(source: str) -> ctypes.CDLL:

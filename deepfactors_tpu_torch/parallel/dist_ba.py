@@ -25,6 +25,7 @@ from ..geometry.camera import PinholeCamera
 from ..geometry.se3 import SE3
 from ..ops import dense_sfm as ds
 from ..solver import system as sysm
+from ..utils.timing import span
 
 Tensor = torch.Tensor
 
@@ -49,17 +50,32 @@ def local_system(pose_q: Tensor, pose_t: Tensor, codes: Tensor,
     """The system of one shard of factors: (H [D, D], b [D], stats [2] =
     (residual, inliers) summed over the active factors). Inactive rows
     (the padding of ``shard_factors``) are linearised and masked out."""
+    with span("ba.linearise"):
+        src, dst, sys = _linearise(pose_q, pose_t, codes, fd, cam, params)
+    with span("ba.assemble"):
+        return _assemble(sys, src, dst, fd.active, K, CS)
+
+
+def _linearise(pose_q, pose_t, codes, fd: ShardedFactorData,
+               cam: PinholeCamera, params: ds.SfmParams):
+    """(src, dst, every factor's JtJ, Jtr and statistics at the current
+    estimate)."""
     src, dst = fd.src.long(), fd.dst.long()
     code0 = codes[src]
     prx = fd.prx0 + torch.einsum("phwc,pc->phw", fd.jac0, code0)
     dpt0 = params.avg_dpt / prx - params.avg_dpt
-    sys = ds.sfm_step_batch(
+    return src, dst, ds.sfm_step_batch(
         SE3(pose_q[src], pose_t[src]), SE3(pose_q[dst], pose_t[dst]), code0,
         cam, fd.img0, fd.img1, dpt0, fd.std0, fd.jac0, fd.grad1, params,
         grad_mode="sampled")
+
+
+def _assemble(sys, src, dst, active, K: int, CS: int):
+    """The factors' blocks summed into (H, b), and the active factors'
+    (residual, inliers)."""
     idx = sysm.factor_slot_indices(src, dst, K, CS)
-    gsys = sysm.assemble(6 * K + CS * K, sys.JtJ, sys.Jtr, idx, fd.active)
-    on = fd.active.bool()
+    gsys = sysm.assemble(6 * K + CS * K, sys.JtJ, sys.Jtr, idx, active)
+    on = active.bool()
     zero = torch.zeros_like(sys.residual)
     stats = torch.stack([torch.where(on, sys.residual, zero).sum(),
                          torch.where(on, sys.inliers, zero).sum()])
@@ -73,37 +89,44 @@ def make_ba_step(K: int, CS: int, cam: PinholeCamera, params: ds.SfmParams,
     fd, active_kf [K]) -> (pose_q, pose_t, codes, stats)``: linearise this
     process's factors, sum the systems over ``group``, add the zero-code
     prior and the prior pinning keyframe 0 (df_work.cpp:29-57), solve with
-    Schur elimination of the code blocks, retract."""
+    Schur elimination of the code blocks, retract. Three spans tile the
+    step: ``ba.linearise``, ``ba.assemble`` (with the ``all_reduce``, the
+    priors and the mask) and ``ba.solve`` (with the retract)."""
     reduce = (group is not None
               and torch.distributed.get_world_size(group) > 1)
 
     def step(pose_q, pose_t, codes, fd: ShardedFactorData, active_kf):
         dev = pose_q.device
-        H, b, stats = local_system(pose_q, pose_t, codes, fd, K, CS, cam,
-                                   params)
-        if reduce:
-            for x in (H, b, stats):
-                torch.distributed.all_reduce(x, group=group)
-        gsys = sysm.GlobalSystem(H, b)
-        on = active_kf.bool()
-        code_idx = 6 * K + torch.arange(CS * K, device=dev)
-        gsys = sysm.add_diagonal_prior(
-            gsys, code_idx,
-            (1.0 / code_prior ** 2) * on.repeat_interleave(CS).to(H.dtype),
-            codes.reshape(-1))
-        anchor_res = se3m.local(se3m.identity(device=dev),
-                                SE3(pose_q[0], pose_t[0]))
-        gsys = sysm.add_diagonal_prior(
-            gsys, torch.arange(6, device=dev),
-            torch.full((6,), 1.0 / pose_prior ** 2, device=dev), anchor_res)
-        vmask = torch.cat([on.repeat_interleave(6), on.repeat_interleave(CS)])
-        gsys = sysm.mask_inactive(gsys, vmask)
-
-        delta = sysm.solve_schur_codes(gsys, K, CS, lam)
-        new_pose = se3m.retract(SE3(pose_q, pose_t),
-                                delta[:6 * K].reshape(K, 6))
-        return (new_pose.q, new_pose.t,
-                codes + delta[6 * K:].reshape(K, CS), stats)
+        with span("ba.linearise"):
+            src, dst, sys = _linearise(pose_q, pose_t, codes, fd, cam,
+                                       params)
+        with span("ba.assemble"):
+            H, b, stats = _assemble(sys, src, dst, fd.active, K, CS)
+            if reduce:
+                for x in (H, b, stats):
+                    torch.distributed.all_reduce(x, group=group)
+            gsys = sysm.GlobalSystem(H, b)
+            on = active_kf.bool()
+            code_idx = 6 * K + torch.arange(CS * K, device=dev)
+            gsys = sysm.add_diagonal_prior(
+                gsys, code_idx,
+                (1.0 / code_prior ** 2) * on.repeat_interleave(CS).to(H.dtype),
+                codes.reshape(-1))
+            anchor_res = se3m.local(se3m.identity(device=dev),
+                                    SE3(pose_q[0], pose_t[0]))
+            gsys = sysm.add_diagonal_prior(
+                gsys, torch.arange(6, device=dev),
+                torch.full((6,), 1.0 / pose_prior ** 2, device=dev),
+                anchor_res)
+            vmask = torch.cat([on.repeat_interleave(6),
+                               on.repeat_interleave(CS)])
+            gsys = sysm.mask_inactive(gsys, vmask)
+        with span("ba.solve"):
+            delta = sysm.solve_schur_codes(gsys, K, CS, lam)
+            new_pose = se3m.retract(SE3(pose_q, pose_t),
+                                    delta[:6 * K].reshape(K, 6))
+            return (new_pose.q, new_pose.t,
+                    codes + delta[6 * K:].reshape(K, CS), stats)
 
     return step
 

@@ -67,7 +67,7 @@ from .ops import image as ip
 from .ops.kernels import build
 from .tracking.tracker import CameraTracker, TrackerConfig
 from .utils import tum_io
-from .utils.timing import tic, toc
+from .utils.timing import span, tag
 
 Tensor = torch.Tensor
 
@@ -285,30 +285,29 @@ class DeepFactors:
         """Two-frame photometric bootstrap. ``frame_gap`` (source frames
         between img0 and img1) turns the estimated baseline into the
         per-frame velocity that seeds the constant-velocity chain."""
-        tic("bootstrap")
-        s0, s1 = self.mapper.init_two_frames(to_gray_float(img0),
-                                             to_gray_float(img1))
-        self.mapper.update_map()
-        self._set_tracker_keyframe(s1)
-        self.curr_kf = s1
-        pose = self.mapper.state.pose
-        self.pose_wc = _host_pose(se3m.index(pose, s1))
-        if self.loop_detector is not None:
-            for s in (s0, s1):
-                self._loop_add_keyframe(s)
-        self.bootstrapped = True
-        self.tracking_lost = False
-        rel = se3m.mul(se3m.inverse(se3m.index(pose, s0)),
-                       se3m.index(pose, s1))
-        g = max(1, int(frame_gap))
-        vel = SE3(se3m.so3_exp_quat(se3m.so3_log(rel.q) / g), rel.t / g)
-        p2 = se3m.mul(SE3(self._dev(self.pose_wc.q), self._dev(self.pose_wc.t)),
-                      se3m.inverse(vel))
-        self._pose_wc_prev = _host_pose(p2)
-        self._reloc_vel = None
-        self._reset_chain()
-        self._last_tracked_nframe = self.n_frames
-        toc("bootstrap")
+        with span("bootstrap"):
+            s0, s1 = self.mapper.init_two_frames(to_gray_float(img0),
+                                                 to_gray_float(img1))
+            self.mapper.update_map()
+            self._set_tracker_keyframe(s1)
+            self.curr_kf = s1
+            pose = self.mapper.state.pose
+            self.pose_wc = _host_pose(se3m.index(pose, s1))
+            if self.loop_detector is not None:
+                for s in (s0, s1):
+                    self._loop_add_keyframe(s)
+            self.bootstrapped = True
+            self.tracking_lost = False
+            rel = se3m.mul(se3m.inverse(se3m.index(pose, s0)),
+                           se3m.index(pose, s1))
+            g = max(1, int(frame_gap))
+            vel = SE3(se3m.so3_exp_quat(se3m.so3_log(rel.q) / g), rel.t / g)
+            p2 = se3m.mul(SE3(self._dev(self.pose_wc.q),
+                              self._dev(self.pose_wc.t)), se3m.inverse(vel))
+            self._pose_wc_prev = _host_pose(p2)
+            self._reloc_vel = None
+            self._reset_chain()
+            self._last_tracked_nframe = self.n_frames
 
     def bootstrap_one_frame(self, img):
         """Bootstrap on one keyframe at the identity pose (the JAX
@@ -334,13 +333,20 @@ class DeepFactors:
         """ProcessFrame (deepfactors.cpp:220-366). With
         ``cfg.pipeline_depth > 0`` this dispatches the frame, then retires
         the frame ``pipeline_depth`` frames back: call :meth:`flush` after
-        the last frame to retire the tail."""
+        the last frame to retire the tail. The call is the span ``frame``
+        with the frame's number; the frame's event kind (``track``,
+        ``keyframe``, ``frame``, ``loop``, ``lost``) is tagged on it, or,
+        pipelined, on the ``frame.retire`` span that carries the retired
+        frame's number."""
         if not self.bootstrapped:
             raise RuntimeError(
                 "Calling ProcessFrame before system is bootstrapped!")
-        tic("preprocess")
-        img = self.preprocess_image(img)
-        toc("preprocess")
+        with span("frame", frame=self.n_frames + 1):
+            self._process_frame(timestamp, img)
+
+    def _process_frame(self, timestamp: float, img) -> None:
+        with span("frame.preprocess"):
+            img = self.preprocess_image(img)
         self.n_frames += 1
         nframe = self.n_frames
         just_relocalized = False
@@ -348,11 +354,11 @@ class DeepFactors:
             # frames in flight behind a loss chained off the lost pose:
             # retire (discard) them first
             self.flush()
-            tic("relocalize")
-            ok = self._relocalize(img)
-            toc("relocalize")
+            with span("frame.relocalize"):
+                ok = self._relocalize(img)
             if not ok:
                 self.n_lost_frames += 1
+                tag(nframe, "lost")
                 return          # stay lost; retry next frame
             self.n_relocalizations += 1
             self.tracking_lost = False
@@ -365,18 +371,18 @@ class DeepFactors:
             newkf = self._select_keyframe()
             if newkf != self.curr_kf:
                 self._set_current_kf(newkf)
-        tic("frame step")
-        out = self._dispatch_frame(img, just_relocalized)
         if self.cfg.pipeline_depth > 0:
-            probe, event = self._probe_copy(out.probe)
-            self._pending.append(_InFlight(timestamp, nframe, img, out,
-                                           self.curr_kf, probe, event))
-            toc("frame step")
+            with span("frame.step"):
+                out = self._dispatch_frame(img, just_relocalized)
+                probe, event = self._probe_copy(out.probe)
+                self._pending.append(_InFlight(timestamp, nframe, img, out,
+                                               self.curr_kf, probe, event))
             while len(self._pending) > self.cfg.pipeline_depth:
                 self._retire_one()
             return
-        probe, new_pose_wc = self._parse_probe(out.probe.cpu().numpy())
-        toc("frame step")
+        with span("frame.step"):
+            out = self._dispatch_frame(img, just_relocalized)
+            probe, new_pose_wc = self._parse_probe(out.probe.cpu().numpy())
         self._decide(timestamp, nframe, img, out, probe, new_pose_wc,
                      self.curr_kf, stale=False)
 
@@ -468,24 +474,25 @@ class DeepFactors:
         read it, and make every decision the sequential path makes after
         the frame step."""
         e = self._pending.popleft()
-        if self.tracking_lost:
-            # a newer retire declared a loss while this frame was in
-            # flight: its tracking chained off the lost pose
-            self.n_lost_frames += 1
-            return
-        tic("probe retire")
-        if e.event is not None:
-            e.event.synchronize()
-        probe, new_pose_wc = self._parse_probe(e.probe.numpy())
-        toc("probe retire")
-        # a frame dispatched before the latest map mutation (keyframe
-        # build, eviction, resurrection) carries distances and similarities
-        # over the pools as they were: its pose counts, but no policy may
-        # act on its stale slots (a d_full entry of a reused slot would
-        # re-fire the keyframe policy at every event)
-        stale = e.nframe <= self._map_mutation_nframe
-        self._decide(e.timestamp, e.nframe, e.img, e.out, probe, new_pose_wc,
-                     e.kf, stale=stale)
+        with span("frame.retire", frame=e.nframe):
+            if self.tracking_lost:
+                # a newer retire declared a loss while this frame was in
+                # flight: its tracking chained off the lost pose
+                self.n_lost_frames += 1
+                tag(e.nframe, "lost")
+                return
+            with span("frame.probe"):
+                if e.event is not None:
+                    e.event.synchronize()
+                probe, new_pose_wc = self._parse_probe(e.probe.numpy())
+            # a frame dispatched before the latest map mutation (keyframe
+            # build, eviction, resurrection) carries distances and
+            # similarities over the pools as they were: its pose counts,
+            # but no policy may act on its stale slots (a d_full entry of a
+            # reused slot would re-fire the keyframe policy at every event)
+            stale = e.nframe <= self._map_mutation_nframe
+            self._decide(e.timestamp, e.nframe, e.img, e.out, probe,
+                         new_pose_wc, e.kf, stale=stale)
 
     def _decide(self, timestamp, nframe, img, out, probe, new_pose_wc,
                 kf: int, stale: bool = False) -> None:
@@ -517,6 +524,7 @@ class DeepFactors:
             self._reloc_vel = None
             self._dev_prev = self._dev_prev2 = self._chain_vel = None
             self.n_lost_frames += 1
+            tag(nframe, "lost")
             return
         if self._reloc_vel is not None:
             # re-seed the constant-velocity chain with the motion estimated
@@ -535,41 +543,49 @@ class DeepFactors:
         if self.pose_callback:
             self.pose_callback(new_pose_wc)
 
+        links = self._n_links()
         if self.loop_detector is not None and not stale:
-            tic("loop closure")
-            self._loop_closure(out.img_pyr, out.grad_pyr, probe, out.feat, kf)
-            toc("loop closure")
+            with span("frame.loop"):
+                self._loop_closure(out.img_pyr, out.grad_pyr, probe,
+                                   out.feat, kf)
+        looped = self._n_links() != links
 
         if not stale and self._new_keyframe_required(probe, kf):
-            tic("enqueue keyframe")
-            slot = self.mapper.enqueue_keyframe(
-                img, self.pose_wc, pyramids_in=(out.img_pyr, out.grad_pyr))
-            self._set_current_kf(slot)
-            self._map_mutation_nframe = self.n_frames
-            self._newest_kf_pose = self.pose_wc
-            # the rate's baseline: the new keyframe sits at this frame's
-            # pose, so the next frame's distance to it is the rate
-            self._last_kf_dist = 0.0
-            # the new keyframe sits at the camera pose: closest by
-            # construction (the cached distances predate it)
-            if self._last_kf_dists is not None:
-                self._last_kf_dists = np.array(self._last_kf_dists, copy=True)
-                self._last_kf_dists[slot] = 0.0
-            if self.loop_detector is not None:
-                self._loop_add_keyframe(slot)
-            # refine the fresh keyframe now: tracking the next frame against
-            # unrefined predicted depth can diverge
-            while self.mapper.has_work():
-                self.mapper.mapping_run()
-            self.mapper.update_map()
-            if self.map_callback:
-                self.map_callback(self.mapper.state)
-            toc("enqueue keyframe")
+            tag(nframe, "loop" if looped else "keyframe")
+            with span("frame.keyframe"):
+                slot = self.mapper.enqueue_keyframe(
+                    img, self.pose_wc,
+                    pyramids_in=(out.img_pyr, out.grad_pyr))
+                self._set_current_kf(slot)
+                self._map_mutation_nframe = self.n_frames
+                self._newest_kf_pose = self.pose_wc
+                # the rate's baseline: the new keyframe sits at this
+                # frame's pose, so the next frame's distance to it is the
+                # rate
+                self._last_kf_dist = 0.0
+                # the new keyframe sits at the camera pose: closest by
+                # construction (the cached distances predate it)
+                if self._last_kf_dists is not None:
+                    self._last_kf_dists = np.array(self._last_kf_dists,
+                                                   copy=True)
+                    self._last_kf_dists[slot] = 0.0
+                if self.loop_detector is not None:
+                    self._loop_add_keyframe(slot)
+                # refine the fresh keyframe now: tracking the next frame
+                # against unrefined predicted depth can diverge
+                while self.mapper.has_work():
+                    self.mapper.mapping_run()
+                self.mapper.update_map()
+                if self.map_callback:
+                    self.map_callback(self.mapper.state)
             return
 
+        kind = "track"
         if not stale and self._new_frame_required(probe, kf):
             self.mapper.enqueue_frame(img, self.pose_wc, kf,
                                       pyramids=(out.img_pyr, out.grad_pyr))
+            kind = "frame"
+        tag(nframe, "loop" if looped else kind)
 
         self.stats = Stats(inliers=probe["inliers"],
                            tracker_error=probe["error"],
@@ -578,13 +594,13 @@ class DeepFactors:
             self.stats_callback(self.stats)
 
         if self.mapper.has_work():
-            tic("mapping")
-            while True:
-                self.mapper.mapping_run()
-                if not self.mapper.has_work() or self.cfg.interleave_mapping:
-                    break
-            self.mapper.update_map()
-            toc("mapping")
+            with span("frame.mapping"):
+                while True:
+                    self.mapper.mapping_run()
+                    if not self.mapper.has_work() or \
+                            self.cfg.interleave_mapping:
+                        break
+                self.mapper.update_map()
 
     def _parse_probe(self, pv: np.ndarray):
         """Unpack the probe vector (frame_step.probe_layout) into the
@@ -877,6 +893,11 @@ class DeepFactors:
             f = det.detect(st.levels[0].img[slot],
                            det.DetectorConfig(max_keypoints=128))
             self.loop_detector.add_keyframe(slot, f.descriptor, f.valid)
+
+    def _n_links(self) -> int:
+        """Loop links made so far: local, live global and archived."""
+        return (self.n_local_links + self.n_live_global_loops
+                + self.n_archived_loops)
 
     def _loop_closure(self, img_pyr, grad_pyr, probe: dict, cur_feat,
                       kf: int):
