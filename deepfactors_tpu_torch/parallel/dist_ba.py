@@ -12,7 +12,8 @@ Where the JAX package takes a device mesh and an axis name, ``make_ba_step``
 takes an optional ``torch.distributed`` process group: with none, or a
 world of one, no collective is issued; with more, H, b and the statistics
 are ``all_reduce``d over the group (each rank passes its own shard from
-``shard_factors``).
+``shard_factors``), inside the span ``ba.allreduce``, and the bytes this
+process all-reduces are counted (``allreduce_bytes()``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,19 @@ from ..solver import system as sysm
 from ..utils.timing import span
 
 Tensor = torch.Tensor
+
+# bytes the BA steps of this process have all-reduced since the last reset
+ALLREDUCED = {"bytes": 0}
+
+
+def allreduce_bytes() -> int:
+    """Bytes this process's BA steps have all-reduced since the last reset:
+    its own buffers, 4 (D^2 + D + 2) a step at fp32."""
+    return ALLREDUCED["bytes"]
+
+
+def reset_allreduce_bytes() -> None:
+    ALLREDUCED["bytes"] = 0
 
 
 class ShardedFactorData(NamedTuple):
@@ -90,8 +104,9 @@ def make_ba_step(K: int, CS: int, cam: PinholeCamera, params: ds.SfmParams,
     process's factors, sum the systems over ``group``, add the zero-code
     prior and the prior pinning keyframe 0 (df_work.cpp:29-57), solve with
     Schur elimination of the code blocks, retract. Three spans tile the
-    step: ``ba.linearise``, ``ba.assemble`` (with the ``all_reduce``, the
-    priors and the mask) and ``ba.solve`` (with the retract)."""
+    step: ``ba.linearise``, ``ba.assemble`` (with the priors, the mask
+    and, where there is a group, the ``all_reduce`` in its own nested span
+    ``ba.allreduce``) and ``ba.solve`` (with the retract)."""
     reduce = (group is not None
               and torch.distributed.get_world_size(group) > 1)
 
@@ -103,8 +118,11 @@ def make_ba_step(K: int, CS: int, cam: PinholeCamera, params: ds.SfmParams,
         with span("ba.assemble"):
             H, b, stats = _assemble(sys, src, dst, fd.active, K, CS)
             if reduce:
-                for x in (H, b, stats):
-                    torch.distributed.all_reduce(x, group=group)
+                with span("ba.allreduce"):
+                    for x in (H, b, stats):
+                        torch.distributed.all_reduce(x, group=group)
+                ALLREDUCED["bytes"] += sum(x.numel() * x.element_size()
+                                           for x in (H, b, stats))
             gsys = sysm.GlobalSystem(H, b)
             on = active_kf.bool()
             code_idx = 6 * K + torch.arange(CS * K, device=dev)

@@ -205,11 +205,13 @@ dist.destroy_process_group()
 """
 
 
-def test_two_gloo_ranks_match_one_process(the_map, tmp_path):
-    """Two processes, each with its shard of the factors, all_reduce the
-    system over a gloo group and reach the estimate of one process."""
+@pytest.mark.parametrize("world", [2, 4])
+def test_two_gloo_ranks_match_one_process(the_map, tmp_path, world):
+    """Two (or four) processes, each with its shard of the factors,
+    all_reduce the system over a gloo group and reach the estimate of one
+    process (four ranks: 10 factors padded to 12, 3 a rank)."""
     _, tc, _ = the_map
-    links = LINKS[:-1]                    # 10 factors: 5 a rank
+    links = LINKS[:-1]                    # 10 factors
     pt = tlm.build_problem(*tc["maps"], tc["poses"], tc["codes"], links)
     ba = tlm.LargeMapBA(K, CS, tc["cam"], tds.SfmParams(**KW), pose_prior=0.05)
     poses, codes, _ = ba.run(pt, iters=2)
@@ -221,9 +223,9 @@ def test_two_gloo_ranks_match_one_process(the_map, tmp_path):
     rendezvous = str(tmp_path / "rendezvous")   # a file store, fresh per test
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     procs = [subprocess.Popen([sys.executable, "-c", _RANK_SCRIPT, ROOT, path,
-                               rendezvous, "2", str(r)], env=env,
+                               rendezvous, str(world), str(r)], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for r in range(2)]
+                              text=True) for r in range(world)]
     try:
         for p in procs:
             _, err = p.communicate(timeout=150)
@@ -232,7 +234,7 @@ def test_two_gloo_ranks_match_one_process(the_map, tmp_path):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    for r in range(2):
+    for r in range(world):
         out = np.load(path + ".out%d.npz" % r)
         np.testing.assert_allclose(out["t"], poses.t.numpy(), atol=1e-5)
         np.testing.assert_allclose(out["q"], poses.q.numpy(), atol=1e-5)
