@@ -23,6 +23,13 @@ Phases, in order (any failure exits non-zero before the final line):
      design (built from port_tools/variants/bilinear_warp_first.cu); the Gram
      kernels with no active against all active. Times kernel and twin with
      CUDA events.
+  2c. jacobian_stack against its twin on the card at one chunk of the
+     large map (P = 124, 192x256, CS 32), Huber and Tukey: Jw (pose rows
+     included) and rw bit for bit, and JtJ after the bmm; the largest
+     difference of Jw and rw from the twin's in the kernels line; NaN rows
+     where tptz is 0 in the same places; kernel, bound and twin times, one
+     launch a call. ``--only-jacobian`` runs phases 1, 2c, 3,
+     6a and 6b.
   2b. the reprojection operators (plain PyTorch, no kernel of their own) on
      the card against the port on the CPU, on one rendered 192x256 frame
      pair with ~90 matches: detect_pyramid (valid keypoints identical,
@@ -52,9 +59,10 @@ Phases, in order (any failure exits non-zero before the final line):
      BA step (K = 8, CS 32, 16 factors at 192x256) through the kernels,
      against the same step assembled from the plain twins; (b) a large map
      of 32 decoded keyframes and 236 factors, ``LargeMapBA`` for 10
-     iterations (dense_warp_batch); (c) ``BatchedOdometry`` over 8 rooms
-     for 30 frames (se3_gram_batch at P = 8, sampled gradients); and one
-     ``sfm_step`` (bilinear_warp_planes).
+     iterations (dense_warp_batch, jacobian_stack); (c)
+     ``BatchedOdometry`` over 8 rooms for 30 frames (se3_gram_batch at
+     P = 8, sampled gradients); and one ``sfm_step``
+     (bilinear_warp_planes).
   7. loop closure in the flagship configuration (tools/bench_e2e.py's
      build_system: reprojection factors and loop closure on, active window
      8, loop_max_dist 0.35, 32 keyframes, the shipped vocabulary) on 186
@@ -190,8 +198,10 @@ Phases, in order (any failure exits non-zero before the final line):
      spin, under a profiler session: each end of a span's device interval
      (CUDA events placed on the host clock by the tracer's anchor) within
      TRACE_TOL_US of the kernel's CUPTI record, and its host start within
-     TRACE_TOL_US of its record_function mirror's. ``--only-trace`` runs
-     phases 1 and 14.
+     TRACE_TOL_US of its record_function mirror's. It runs in a process
+     of its own (``--only-trace``, which runs phases 1 and 14): late in
+     this long process the profiler keeps only 13-14 of the 20 kernel
+     records, on the parent commit too.
 Then a ``kernels`` JSON line (``launches_by_path["multi"]``: phase 13's
 launches, summed over its ranks), the script's time, the nvidia-smi line,
 and as the last line
@@ -199,7 +209,7 @@ and as the last line
 
 Run from the repository root:  python3 chip_smoke.py
 Options: --ptxas (print nvcc's register/shared-memory report); --only-demo;
---only-train; --only-tools; --only-multi; --only-trace.
+--only-train; --only-tools; --only-multi; --only-trace; --only-jacobian.
 """
 import argparse
 import json
@@ -265,6 +275,10 @@ DENSE_WARP_ATOL = 1e-6
 # every distinct launch plan: the compile-time kernels (1, 3, 4 planes),
 # the general loop (5) and a call that takes two launches (9 > MAX_PLANES)
 BILINEAR_CS = (1, 3, 4, 5, 9)
+# jacobian_stack (phase 2c): the robust loss's delta, the seed of its
+# factor set and of the perturbation of their poses
+JSTACK_DELTA = 0.3
+JSTACK_SEED = 70
 # The first design of bilinear_warp_planes, built beside the kernels and
 # timed in turns with the port's in the sampling stage of sfm_step
 FIRST_BILINEAR_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1142,6 +1156,7 @@ def phase_kernels(dev, first_design=None):
     out.update(phase_error_kernels(dev, K, cams, levels, q, t, empty_ms))
     out.update(phase_warp_kernels(dev, K, cams, levels, q, t, empty_ms,
                                   first_design))
+    out.update(phase_jacobian_stack(dev, K, cam, levels[0], q, t, codes_k))
     return out
 
 
@@ -1859,6 +1874,175 @@ def phase_warp_kernels(dev, K, cams, levels, q, t, empty_ms,
     if ctx is not None:
         out["bilinear_warp_planes"]["in_context"] = ctx
     return out
+
+
+# ----------------------------------------------------------------------------
+# phase 2c: the weighted Jacobian stack
+# ----------------------------------------------------------------------------
+
+def _ulps(a, b):
+    """(entries that differ in their bits, the largest distance in units
+    in the last place between two finite fp32 tensors of one shape); NaN
+    must lie in the same places."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    assert torch.equal(na, nb), "NaN in other places"
+    ia = a.masked_fill(na, 0.0).view(torch.int32).long()
+    ib = b.masked_fill(nb, 0.0).view(torch.int32).long()
+    # the fp32 bit patterns on one monotone integer line
+    key = lambda i: torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    d = (key(ia) - key(ib)).abs()
+    return int((ia != ib).sum()), int(d.max()) if d.numel() else 0
+
+
+def _stack_errs(got, want):
+    """(max |got - want|, that over max |want|) over the pairs of tensors
+    (Jw, rw), NaN places excluded (_ulps holds them to the same places)."""
+    import torch
+    err = ref = 0.0
+    for a, b in zip(got, want):
+        keep = ~torch.isnan(b)
+        err = max(err, float((a[keep] - b[keep]).abs().max()))
+        ref = max(ref, float(b[keep].abs().max()))
+    return err, err / ref
+
+
+def phase_jacobian_stack(dev, K, cam, lv, q, t, codes):
+    """2c: jacobian_stack at one chunk of the large map against its twin
+    (the eager chain it replaced, which the CPU tests hold to the
+    pre-kernel code), Huber and Tukey: Jw and rw bit for bit, pose rows
+    included, and JtJ after the bmm too; then with rows at tptz = 0
+    (tptz_zero_rows), where the rows are not finite and the weight is 0:
+    NaN in the same places. Timed beside its bound."""
+    import torch
+    from deepfactors_tpu_torch.geometry import se3 as se3m
+    from deepfactors_tpu_torch.geometry.se3 import SE3
+    from deepfactors_tpu_torch.geometry.warping import depth_to_prox
+    from deepfactors_tpu_torch.ops import dense_sfm as ds
+    from deepfactors_tpu_torch.ops.kernels import dense_warp as dw
+    from deepfactors_tpu_torch.ops.kernels import jacobian_stack as js
+
+    CS, avg = lv["jac"].shape[1], 2.0
+    N = H * W
+    P = ds._JT_CHUNK_BYTES // ((12 + CS) * N * 4)
+    src, dst, _ = factor_set(K, P, dev, seed=JSTACK_SEED)
+    sl, dl = src.long(), dst.long()
+    poses0 = perturb(SE3(q[sl], t[sl]), seed=JSTACK_SEED + 1)
+    pose_10, j_pose1, j_pose0 = se3m.relative_pose_jacobians(
+        SE3(q[dl], t[dl]), poses0)
+    kp = dw.make_warp_params(pose_10, cam, 2, 0.0)
+    jac0 = lv["jac"][sl].permute(0, 2, 3, 1).contiguous()
+    # depth decoded from a code as dist_ba does
+    prx = depth_to_prox(lv["dpt"][sl], avg) + torch.einsum(
+        "phwc,pc->phw", jac0, codes[sl])
+    dpt = (avg / prx - avg).contiguous()
+    img0 = lv["img"][sl].contiguous()
+    grid = ds._pixel_grid(H, W, dev).reshape(-1, 2)
+    u = (grid[:, 0] - cam.u0) / cam.fx
+    v = (grid[:, 1] - cam.v0) / cam.fy
+    warp = dw.dense_warp_batch(kp, dpt, lv["img"][dl], lv["gx"][dl],
+                               lv["gy"][dl])
+    js.reset_launch_counts()
+    rows = []
+    for loss in ("huber", "tukey"):
+        args = (kp, warp, dpt, img0, jac0, j_pose0, j_pose1, u, v,
+                JSTACK_DELTA, avg, loss)
+        before = js.LAUNCHES["jacobian_stack"]
+        Jk, rk = js.jacobian_stack(*args)
+        Jp, rp = js.jacobian_stack_plain(*args)
+        torch.cuda.synchronize()
+        assert js.LAUNCHES["jacobian_stack"] == before + 1, js.LAUNCHES
+        assert Jk.shape == (P, 12 + CS, N) and Jk.is_contiguous()
+        assert torch.isfinite(Jk).all() and torch.isfinite(rk).all()
+        assert float((rk != 0).float().mean()) > 0.5, "most rows weigh 0"
+        bits = lambda x: x.view(torch.int32)
+        assert torch.equal(bits(Jk[:, 12:]), bits(Jp[:, 12:])), \
+            f"{loss}: code rows differ from the twin's: {_ulps(Jk[:, 12:], Jp[:, 12:])}"
+        assert torch.equal(bits(rk), bits(rp)), f"{loss}: rw differs"
+        pose_n, pose_ulp = _ulps(Jk[:, :12], Jp[:, :12])
+        assert pose_n == 0, f"{loss}: pose rows differ, at most {pose_ulp} ulp"
+        Gk = Jk @ Jk.transpose(-1, -2)
+        Gp = Jp @ Jp.transpose(-1, -2)
+        jtj_n, jtj_ulp = _ulps(Gk, Gp)
+        assert jtj_n == 0, f"{loss}: JtJ differs, at most {jtj_ulp} ulp"
+        abs_err, rel_err = _stack_errs((Jk, rk), (Jp, rp))
+        del Jp, Gk, Gp
+        nbytes = 4 * (22 + 2 * CS) * N * P
+        bms, by = bound(nbytes, (54 + 144 + 2 * CS + 7 + 13) * N * P)
+        row = dict(loss=loss, shape=f"P={P} {H}x{W} CS {CS}",
+                   pose_rows_differing=pose_n, pose_rows_max_ulp=pose_ulp,
+                   jtj_differing=jtj_n, jtj_max_ulp=jtj_ulp,
+                   max_abs_err=abs_err, max_rel_err=rel_err,
+                   ms=cuda_ms(lambda: js.jacobian_stack(*args)),
+                   plain_ms=cuda_ms(lambda: js.jacobian_stack_plain(*args),
+                                    iters=5),
+                   bound_ms=bms, bound_by=by, library_ms=None)
+        rows.append(row)
+        log(f"jacobian_stack {loss} at {row['shape']}: Jw (pose rows "
+            f"included) and rw bit for bit the twin's, JtJ after the bmm "
+            f"too; max |Jw, rw - twin| {abs_err}, relative {rel_err}; "
+            f"kernel {row['ms']:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}, {nbytes / 1e9:.3f} GB), "
+            f"{100 * bms / row['ms']:.1f}% of it; twin "
+            f"{row['plain_ms']:.4f} ms")
+    # rows at tptz = 0: not finite, weighed 0, NaN where the eager chain has
+    dz = dpt.clone()
+    tptz_zero_rows(kp, dz, cam)
+    wz = dw.dense_warp_batch(kp, dz, lv["img"][dl], lv["gx"][dl],
+                             lv["gy"][dl])
+    args = (kp, wz, dz, img0, jac0, j_pose0, j_pose1, u, v, JSTACK_DELTA,
+            avg, "huber")
+    Jk, rk = js.jacobian_stack(*args)
+    Jp, rp = js.jacobian_stack_plain(*args)
+    torch.cuda.synchronize()
+    nan = torch.isnan(Jk)
+    assert bool(nan.any()) and torch.equal(nan, torch.isnan(Jp))
+    assert torch.equal(Jk[:, 12:].view(torch.int32),
+                       Jp[:, 12:].view(torch.int32))
+    assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
+    nan_n, nan_ulp = _ulps(Jk[:, :12], Jp[:, :12])
+    assert nan_n == 0, f"tptz = 0: pose rows differ, at most {nan_ulp} ulp"
+    del Jk, Jp
+    # a partial last strip, the tile without 16-byte loads (CS 5), and more
+    # than 48 KB of shared memory (CS 64), on synthetic planes
+    from deepfactors_tpu_torch.geometry.camera import PinholeCamera
+    g = torch.Generator(device="cpu").manual_seed(JSTACK_SEED + 2)
+    rnd = lambda *shape: torch.rand(shape, generator=g).to(dev)
+    edge = []
+    for ce, he, we in ((5, 89, 121), (8, 90, 122), (64, 48, 64)):
+        cam_e = PinholeCamera.create(fx=80.0, fy=80.0, u0=we / 2, v0=he / 2,
+                                     width=we, height=he)
+        kp_e = dw.make_warp_params(se3m.index(pose_10, slice(0, 3)), cam_e,
+                                   2, 0.0)
+        dpt_e = 1.5 + rnd(3, he, we)
+        warp_e = dw.dense_warp_batch(kp_e, dpt_e, rnd(3, he, we),
+                                     rnd(3, he, we) - 0.5,
+                                     rnd(3, he, we) - 0.5)
+        grid_e = ds._pixel_grid(he, we, dev).reshape(-1, 2)
+        args = (kp_e, warp_e, dpt_e, rnd(3, he, we),
+                0.02 * (rnd(3, he, we, ce) - 0.5), j_pose0[:3].contiguous(),
+                j_pose1[:3].contiguous(), (grid_e[:, 0] - cam_e.u0) / cam_e.fx,
+                (grid_e[:, 1] - cam_e.v0) / cam_e.fy, JSTACK_DELTA, avg,
+                "huber")
+        Je, re = js.jacobian_stack(*args)
+        Jq, rq = js.jacobian_stack_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(Je).all() and float((re != 0).float().mean()) > 0.3
+        assert torch.equal(Je.view(torch.int32), Jq.view(torch.int32)) and \
+            torch.equal(re.view(torch.int32), rq.view(torch.int32)), \
+            f"CS {ce} at {he}x{we}: {_ulps(Je, Jq)}"
+        edge.append(f"CS {ce} at {he}x{we}")
+    launches = js.LAUNCHES["jacobian_stack"]
+    # a call, then cuda_ms's 3 + 20, for each loss; the call at tptz = 0;
+    # one for each edge case
+    assert launches == len(rows) * (1 + 3 + 20) + 1 + len(edge), js.LAUNCHES
+    log(f"jacobian_stack at tptz = 0: {int(nan.sum())} NaN entries, in the "
+        f"twin's places; Jw and rw bit for bit elsewhere. Bit for bit the "
+        f"twin's at "
+        f"{', '.join(edge)}; {launches} launches in the phase (one a call)")
+    return {"jacobian_stack": dict(
+        rows[0], max_abs_err=max(r["max_abs_err"] for r in rows),
+        max_rel_err=max(r["max_rel_err"] for r in rows), by_shape=rows)}
 
 
 # ----------------------------------------------------------------------------
@@ -2909,12 +3093,14 @@ def _smoke_camera():
 
 def phase_dryrun(dev):
     """6a: the dry-run BA step through its entry point, then its system
-    (H, b) through the kernel against the same system with
-    ``dense_warp_batch`` replaced by its plain twin, on the card, at poses
-    moved off the identity so that no block is zero."""
+    (H, b) through the kernels against the same system with
+    ``dense_warp_batch`` and ``jacobian_stack`` replaced by their plain
+    twins, on the card, at poses moved off the identity so that no block is
+    zero."""
     import torch
     from deepfactors_tpu_torch.geometry.se3 import SE3
     from deepfactors_tpu_torch.ops.kernels import dense_warp as dw
+    from deepfactors_tpu_torch.ops.kernels import jacobian_stack as js
     from deepfactors_tpu_torch.parallel import dist_ba, dryrun
 
     reset_launch_counts()
@@ -2927,6 +3113,7 @@ def phase_dryrun(dev):
     assert np.abs(t).max() > 1e-4, "the step did not move a pose"
     launches = launch_counts()
     assert launches["dense_warp_batch"] == 1, launches
+    assert launches["jacobian_stack"] == 1, launches
 
     cam, params, fd, q0, t0_, c0, active = dryrun.dryrun_problem(dev)
     moved = perturb(SE3(q0, t0_), seed=61)
@@ -2935,14 +3122,16 @@ def phase_dryrun(dev):
     system = lambda: dist_ba.local_system(moved.q, moved.t, codes, fd, K, CS,
                                           cam, params)
     Hk, bk, sk = system()
-    kernel = dw.dense_warp_batch
+    kernels = dw.dense_warp_batch, js.jacobian_stack
     dw.dense_warp_batch = dw.dense_warp_batch_plain
+    js.jacobian_stack = js.jacobian_stack_plain
     try:
         Hp, bp, sp = system()
     finally:
-        dw.dense_warp_batch = kernel
+        dw.dense_warp_batch, js.jacobian_stack = kernels
     torch.cuda.synchronize()
     assert launch_counts()["dense_warp_batch"] == 2, launch_counts()
+    assert launch_counts()["jacobian_stack"] == 2, launch_counts()
     Dp = 6 * K
     blocks = {"H pose-pose": (Hk[:Dp, :Dp], Hp[:Dp, :Dp]),
               "H pose-code": (Hk[:Dp, Dp:], Hp[:Dp, Dp:]),
@@ -3028,6 +3217,7 @@ def large_map_run(setup):
     chunk = ds._JT_CHUNK_BYTES // ((12 + CS) * H * W * 4)
     n_chunks = -(-P // chunk)
     assert launches["dense_warp_batch"] == c["iters"] * n_chunks, launches
+    assert launches["jacobian_stack"] == c["iters"] * n_chunks, launches
     hist = torch.stack(hist).cpu().numpy()
     err = lambda p: se3m.local(true, p)[:, :3].norm(dim=-1).cpu().numpy()
     e0, e1 = err(poses0), err(est)
@@ -3073,6 +3263,7 @@ def large_map_run(setup):
     after = launch_counts()
     assert after["bilinear_warp_planes"] - before["bilinear_warp_planes"] == 1
     assert after["dense_warp_batch"] - before["dense_warp_batch"] == 1
+    assert after["jacobian_stack"] - before["jacobian_stack"] == 1
     assert float(sys1.inliers) == float(sysb.inliers[0]) == float(valid0.sum()) > 0
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
     e_jtj, e_jtr = rel(sys1.JtJ, sysb.JtJ[0]), rel(sys1.Jtr, sysb.Jtr[0])
@@ -4613,6 +4804,21 @@ def phase_trace(dev):
     return out
 
 
+def phase_trace_fresh():
+    """Phase 14 in a process of its own (``--only-trace``): late in the
+    whole script the profiler keeps only some of the kernel records (13-14
+    of 20, on the parent commit too; ROADMAP E5), which would fail the
+    check for a cause outside the tracer."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                         "--only-trace"]).returncode
+    assert rc == 0, f"phase 14 in its own process exited {rc}"
+    log(f"phase 14 in its own process: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ptxas", action="store_true")
@@ -4626,6 +4832,8 @@ def main():
                     help="phases 1 (build) and 13 only")
     ap.add_argument("--only-trace", action="store_true",
                     help="phases 1 (build) and 14 only")
+    ap.add_argument("--only-jacobian", action="store_true",
+                    help="phases 1 (build), 2c, 3, 6a and 6b only")
     # a rank of phase 13's world (what multihost.World starts)
     ap.add_argument("--rank-task", action="store_true",
                     help=argparse.SUPPRESS)
@@ -4670,8 +4878,15 @@ def main():
             log(f"--- {src}\n{v['ptxas']}")
 
     if args.only_demo or args.only_train or args.only_tools or \
-            args.only_multi or args.only_trace:
-        if args.only_demo:
+            args.only_multi or args.only_trace or args.only_jacobian:
+        if args.only_jacobian:
+            cam, levels, q, t, codes = make_pools(dev)
+            out = {"jacobian_stack": phase_jacobian_stack(
+                dev, 32, cam, levels[0], q, t, codes)["jacobian_stack"],
+                "dry_run": phase_dryrun(dev),
+                "large_map": large_map_run(large_map_setup(
+                    dev, phase_decoder(dev)))}
+        elif args.only_demo:
             out = {"demo_launches": phase_demo(dev, phase_decoder(dev))}
         elif args.only_train:
             out = {"train_launches": phase_train(dev)}
@@ -4708,7 +4923,7 @@ def main():
     launches_train = phase_train(dev)
     launches_tools = phase_tools(dev, decoder)
     launches_multi = phase_multi(dev)
-    phase_trace(dev)
+    phase_trace_fresh()
 
     meta = {
         "se3_gram_batch": ("deepfactors_tpu_torch/csrc/se3_gram.cu",
@@ -4723,6 +4938,9 @@ def main():
                              "deepfactors_tpu/ops/pallas/warp_kernel.py:280"),
         "bilinear_warp_planes": ("deepfactors_tpu_torch/csrc/dense_warp.cu",
                                  "deepfactors_tpu/ops/pallas/warp_kernel.py:125"),
+        "jacobian_stack": ("deepfactors_tpu_torch/csrc/jacobian_stack.cu",
+                           "none (XLA's fusion of the Jacobian build, "
+                           "deepfactors_tpu/ops/dense_sfm.py:322-392)"),
     }
     rows = []
     for name, (src, rep) in meta.items():

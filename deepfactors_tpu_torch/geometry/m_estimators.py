@@ -43,3 +43,11 @@ def tukey_sqrt_weight(x, c):
     MapperConfig.fine_loss)."""
     a = x / c
     return torch.clamp(1.0 - a * a, min=0.0)
+
+
+def robust_weight(r, delta, loss: str = "huber"):
+    """Square-root IRLS weight by loss name: 'tukey' (redescending, finest
+    pyramid level) or 'huber'."""
+    if loss == "tukey":
+        return tukey_sqrt_weight(r, delta)
+    return huber_weight(r, delta)

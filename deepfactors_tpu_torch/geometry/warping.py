@@ -106,3 +106,40 @@ def correspondence_jacobian_code(corresp: Correspondence, dpt: Tensor,
     pix1_J_prx = correspondence_jacobian_prx(corresp, dpt, cam, pose_10,
                                              avg_dpt)
     return pix1_J_prx[..., :, None] * prx_J_cde[..., None, :]
+
+
+# ----------------------------------------------------------------------------
+# Gradient-contracted warp Jacobians, unrolled (dense_sfm.h:124-201)
+# ----------------------------------------------------------------------------
+
+def warp_jacobians(x, y, z, u, v, dpt, gx, gy, fx, fy, R, t, avg_dpt):
+    """Gradient-contracted warp Jacobians A [..., 6, N] (w.r.t. pose_10) and
+    the prox chain err_J_prx [..., N] (dense_sfm.h:124-201), unrolled.
+
+    x, y, z are the transformed points and gx, gy the sampled gradients
+    [..., N]; u, v the pixels' rays; R [..., 3, 3] and t [..., 3] pose_10's
+    rotation and translation; fx, fy floats or [..., 1]. A leading factor
+    axis is batched; u and v may stay [N]."""
+    iz = 1.0 / z
+    d00 = fx * iz
+    d02 = -fx * x * iz * iz
+    d11 = fy * iz
+    d12 = -fy * y * iz * iz
+    gd0 = gx * d00
+    gd1 = gy * d11
+    gd2 = gx * d02 + gy * d12
+    t10 = t[..., None]                            # [..., 3, 1]
+    vx = x - t10[..., 0, :]
+    vy = y - t10[..., 1, :]
+    vz = z - t10[..., 2, :]
+    A = torch.stack([gd0, gd1, gd2, -gd1 * vz + gd2 * vy,
+                     gd0 * vz - gd2 * vx, -gd0 * vy + gd1 * vx], dim=-2)
+    R = R[..., None]                              # [..., 3, 3, 1]
+    m0 = R[..., 0, 0, :] * u + R[..., 0, 1, :] * v + R[..., 0, 2, :]
+    m1 = R[..., 1, 0, :] * u + R[..., 1, 1, :] * v + R[..., 1, 2, :]
+    m2 = R[..., 2, 0, :] * u + R[..., 2, 1, :] * v + R[..., 2, 2, :]
+    pjd0 = d00 * m0 + d02 * m2
+    pjd1 = d11 * m1 + d12 * m2
+    dpt_J_prx = depth_jacobian_prx(dpt, avg_dpt)
+    err_J_prx = -(gx * pjd0 + gy * pjd1) * dpt_J_prx
+    return A, err_J_prx

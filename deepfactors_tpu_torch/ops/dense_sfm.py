@@ -15,8 +15,10 @@ sampled Sobel gradients (``grad_mode="sampled"``) ``sfm_step`` samples
 through one ``ops/kernels/dense_warp.bilinear_warp_plane_list`` call
 (kernel ``bilinear_warp_planes``, its planes read in place) and
 ``sfm_step_batch`` warps and samples every factor in one
-``dense_warp_batch`` call; the Jacobians and the JtJ reduction stay batched
-PyTorch (one ``bmm`` over the factor axis).
+``dense_warp_batch`` call and builds the weighted Jacobian stack in one
+``ops/kernels/jacobian_stack`` call (kernel ``jacobian_stack_kernel``), a
+chunk of factors at a time; the JtJ reduction stays batched PyTorch (one
+``bmm`` over the factor axis).
 
 Pose convention (cu_sfmaligner.cpp:131-133): pose0/pose1 are camera-to-world
 keyframe poses; pose_10 = pose1^-1 * pose0 maps cam0 points into cam1.
@@ -30,22 +32,15 @@ import torch
 from ..geometry import se3 as se3m
 from ..geometry import warping as wp
 from ..geometry.camera import PinholeCamera
-from ..geometry.m_estimators import huber_weight, tukey_sqrt_weight
+from ..geometry.m_estimators import huber_weight, robust_weight
 from ..geometry.se3 import SE3
 from .image import bilinear_sample, bilinear_sample_grad
 from .kernels import dense_warp as dw
+from .kernels import jacobian_stack as js
 from .kernels import sfm_error as se
 from .kernels import sfm_gram as sg
 
 Tensor = torch.Tensor
-
-
-def robust_weight(r, delta, loss: str = "huber"):
-    """Square-root IRLS weight by loss name: 'tukey' (redescending, finest
-    pyramid level) or 'huber'."""
-    if loss == "tukey":
-        return tukey_sqrt_weight(r, delta)
-    return huber_weight(r, delta)
 
 
 class SfmParams(NamedTuple):
@@ -99,8 +94,13 @@ def _masked_system_T(JT: Tensor, r: Tensor, w: Tensor, valid: Tensor) -> SystemR
     with r, w, valid [..., N] (weight on both rows and residual,
     dense_sfm.h:189-199); leading axes are batched."""
     wv = torch.where(valid, w, torch.zeros_like(w))
-    Jw = JT * wv[..., None, :]
-    rw = r * wv
+    return _weighted_system_T(JT * wv[..., None, :], r * wv, valid)
+
+
+def _weighted_system_T(Jw: Tensor, rw: Tensor, valid: Tensor) -> SystemResult:
+    """The GN system of weighted FEATURE-MAJOR Jacobians Jw [..., D, N] and
+    weighted residuals rw [..., N], with the valid mask [..., N] counted as
+    inliers; leading axes are batched."""
     return SystemResult(Jw @ Jw.transpose(-1, -2),
                         (Jw @ rw[..., None])[..., 0],
                         torch.sum(rw * rw, dim=-1),
@@ -141,39 +141,6 @@ def _dense_warp_fields(H, W, dpt, cam, pose_10, border, min_dpt) -> DenseWarp:
     return DenseWarp(u, v, tptx, tpty, tptz, pix1x, pix1y, valid)
 
 
-def _unrolled_warp_jacobians(warp: DenseWarp, dpt, cam, pose_10, gx, gy,
-                             avg_dpt):
-    """Gradient-contracted warp Jacobians A [..., 6, N] (w.r.t. pose_10) and
-    the prox chain err_J_prx [..., N] (dense_sfm.h:124-201), unrolled. A
-    leading factor axis on the fields and the pose is batched; warp.u and
-    warp.v may stay [N]."""
-    x, y, z = warp.tptx, warp.tpty, warp.tptz
-    iz = 1.0 / z
-    d00 = cam.fx * iz
-    d02 = -cam.fx * x * iz * iz
-    d11 = cam.fy * iz
-    d12 = -cam.fy * y * iz * iz
-    gd0 = gx * d00
-    gd1 = gy * d11
-    gd2 = gx * d02 + gy * d12
-    t10 = pose_10.t[..., None]                    # [..., 3, 1]
-    vx = x - t10[..., 0, :]
-    vy = y - t10[..., 1, :]
-    vz = z - t10[..., 2, :]
-    A = torch.stack([gd0, gd1, gd2, -gd1 * vz + gd2 * vy,
-                     gd0 * vz - gd2 * vx, -gd0 * vy + gd1 * vx], dim=-2)
-    R = se3m.quat_to_matrix(pose_10.q)[..., None]  # [..., 3, 3, 1]
-    u, v = warp.u, warp.v
-    m0 = R[..., 0, 0, :] * u + R[..., 0, 1, :] * v + R[..., 0, 2, :]
-    m1 = R[..., 1, 0, :] * u + R[..., 1, 1, :] * v + R[..., 1, 2, :]
-    m2 = R[..., 2, 0, :] * u + R[..., 2, 1, :] * v + R[..., 2, 2, :]
-    pjd0 = d00 * m0 + d02 * m2
-    pjd1 = d11 * m1 + d12 * m2
-    dpt_J_prx = wp.depth_jacobian_prx(dpt, avg_dpt)
-    err_J_prx = -(gx * pjd0 + gy * pjd1) * dpt_J_prx
-    return A, err_J_prx
-
-
 def _sample_img_grad_xy(img1, grad1, x1, y1, grad_mode):
     """Sample (img, gx, gy) at warped coords [N]: the exact gradient of the
     bilinear interpolant ('interp'), or img1 and its Sobel planes in one
@@ -203,8 +170,9 @@ def sfm_step(pose0: SE3, pose1: SE3, code0: Tensor, cam: PinholeCamera,
                               params.min_dpt)
     i1, gx, gy = _sample_img_grad_xy(img1, grad1, warp.pix1x, warp.pix1y,
                                      grad_mode)
-    A, err_J_prx = _unrolled_warp_jacobians(warp, dpt, cam, pose_10, gx, gy,
-                                            params.avg_dpt)
+    A, err_J_prx = wp.warp_jacobians(
+        warp.tptx, warp.tpty, warp.tptz, warp.u, warp.v, dpt, gx, gy, cam.fx,
+        cam.fy, se3m.quat_to_matrix(pose_10.q), pose_10.t, params.avg_dpt)
     Jp0T = -(j_pose0.T @ A)
     Jp1T = -(j_pose1.T @ A)
     JcT = err_J_prx[None, :] * prx_jac0.reshape(-1, CS).T
@@ -215,8 +183,8 @@ def sfm_step(pose0: SE3, pose1: SE3, code0: Tensor, cam: PinholeCamera,
     return sys, warp.valid.reshape(H, W).to(img0.dtype)
 
 
-# Factors linearised at once in ``sfm_step_batch``: the [chunk, 12 + CS, N]
-# Jacobian stack and its weighted copy are held to this many bytes each.
+# Factors linearised at once in ``sfm_step_batch``: the weighted
+# [chunk, 12 + CS, N] Jacobian stack is held to this many bytes.
 _JT_CHUNK_BYTES = 1 << 30
 
 
@@ -228,9 +196,10 @@ def sfm_step_batch(poses0: SE3, poses1: SE3, codes0: Tensor,
     [P, H, W, CS]).
 
     With sampled gradients the correspondence and the samples of every
-    factor come from ONE ``dense_warp_batch`` call (per chunk of factors,
-    when the Jacobian stack of all P would pass ``_JT_CHUNK_BYTES``), and
-    the Jacobians and the JtJ reduction are batched over the factor axis.
+    factor come from ONE ``dense_warp_batch`` call and the weighted
+    Jacobian stack from ONE ``jacobian_stack`` call (per chunk of factors,
+    when the stack of all P would pass ``_JT_CHUNK_BYTES``), and the JtJ
+    reduction is batched over the factor axis.
     ``grad_mode="interp"`` is a loop over ``sfm_step``."""
     P, H, W = img0s.shape
     if grad_mode == "interp":
@@ -253,23 +222,14 @@ def sfm_step_batch(poses0: SE3, poses1: SE3, codes0: Tensor,
     for a in range(0, P, chunk):
         c = slice(a, a + chunk)
         dpt = dpt0s[c].contiguous()
-        i1, gx, gy, tptx, tpty, tptz, validf = dw.dense_warp_batch(
+        warp = dw.dense_warp_batch(
             wparams[c], dpt, img1s[c].contiguous(),
             grad1s[c, ..., 0].contiguous(), grad1s[c, ..., 1].contiguous())
-        flat = lambda x: x.reshape(-1, N)
-        warp = DenseWarp(u, v, flat(tptx), flat(tpty), flat(tptz), None, None,
-                         flat(validf) > 0.5)
-        A, err_J_prx = _unrolled_warp_jacobians(
-            warp, flat(dpt), cam, se3m.index(pose_10, c), flat(gx), flat(gy),
-            params.avg_dpt)
-        JT = torch.cat([
-            -(j_pose0[c].transpose(-1, -2) @ A),
-            -(j_pose1[c].transpose(-1, -2) @ A),
-            err_J_prx[:, None, :] * jacs0[c].reshape(-1, N, CS).transpose(1, 2),
-        ], dim=1)
-        r = flat(img0s[c]) - flat(i1)
-        w = robust_weight(r, params.huber_delta, loss)
-        out.append(_masked_system_T(JT, r, w, warp.valid))
+        Jw, rw = js.jacobian_stack(
+            wparams[c], warp, dpt, img0s[c].contiguous(),
+            jacs0[c].contiguous(), j_pose0[c], j_pose1[c], u, v,
+            params.huber_delta, params.avg_dpt, loss)
+        out.append(_weighted_system_T(Jw, rw, warp[6].reshape(-1, N) > 0.5))
     return SystemResult(*(torch.cat(x) for x in zip(*out)))
 
 

@@ -4,8 +4,8 @@ kernel; ``launch_counts`` reads all of them at once."""
 
 
 def _modules():
-    from . import dense_warp, sfm_error, sfm_gram
-    return sfm_gram, sfm_error, dense_warp
+    from . import dense_warp, jacobian_stack, sfm_error, sfm_gram
+    return sfm_gram, sfm_error, dense_warp, jacobian_stack
 
 
 def launch_counts() -> dict:

@@ -367,10 +367,11 @@ def public_row(q: int, CS: int) -> int:
 @functools.lru_cache(maxsize=256)
 def launch_plan(name: str, P: int, H: int, W: int, CS: int = 0) -> LaunchPlan:
     """The launch geometry of ``se3_gram_batch``, ``sfm_gram_batch``,
-    ``sfm_error_batch``, ``se3_warp_batch`` or ``bilinear_warp_planes`` for
-    P factors on H x W planes (code size CS): what the wrappers hand to
-    csrc/se3_gram.cu, csrc/sfm_gram.cu, csrc/sfm_error.cu and
-    csrc/dense_warp.cu, which derive none of it. Plans are cached by their
+    ``sfm_error_batch``, ``se3_warp_batch``, ``bilinear_warp_planes`` or
+    ``jacobian_stack`` for P factors on H x W planes (code size CS): what
+    the wrappers hand to csrc/se3_gram.cu, csrc/sfm_gram.cu,
+    csrc/sfm_error.cu, csrc/dense_warp.cu and csrc/jacobian_stack.cu, which
+    derive none of it. Plans are cached by their
     arguments; the module's constants are read when a plan is first made."""
     N = H * W
     slots = _BLOCKS_PER_SM * _SM_COUNT
@@ -400,6 +401,15 @@ def launch_plan(name: str, P: int, H: int, W: int, CS: int = 0) -> LaunchPlan:
             raise ValueError("bilinear_warp_planes samples one set of planes")
         return LaunchPlan((strips1, 1), THREADS, strips1, 0, 0, (), 0, 0, 0,
                           0, 0, 0, 0, (), (), ())
+    if name == "jacobian_stack":
+        # one pixel a thread; a block's [THREADS, CS] tile of the code
+        # Jacobian in shared memory, its rows an odd number of floats apart
+        # so that no two lanes of a warp read one bank
+        if not 1 <= CS <= MAX_CODE_SIZE:
+            raise ValueError(f"code size {CS} is not in 1..{MAX_CODE_SIZE}")
+        stride = CS + 1 if CS % 2 == 0 else CS
+        return LaunchPlan((strips1, P), THREADS, strips1, 0, 0, (), 0, 0, 0,
+                          0, stride, 0, 4 * THREADS * stride, (), (), ())
     if name != "sfm_gram_batch":
         raise ValueError(f"no launch plan for {name!r}")
     if not 1 <= CS <= MAX_CODE_SIZE:
@@ -475,12 +485,15 @@ def _table(plan: LaunchPlan, CS: int, dev: torch.device) -> Tensor:
 _SIGS = {}
 
 
-def _lib(source: str, fn: str, err_fn: str, nargs_ptr: int, nargs_int: int):
+def _lib(source: str, fn: str, err_fn: str, nargs_ptr: int, nargs_int: int,
+         nargs_float: int = 0):
+    """The library of ``source`` with ``fn``'s C signature declared: nargs_ptr
+    pointers, nargs_int ints, nargs_float floats, then the stream."""
     lib = build.library(source)
     if (source, fn) not in _SIGS:
         f = getattr(lib, fn)
         f.argtypes = ([ctypes.c_void_p] * nargs_ptr + [ctypes.c_int] * nargs_int
-                      + [ctypes.c_void_p])
+                      + [ctypes.c_float] * nargs_float + [ctypes.c_void_p])
         f.restype = ctypes.c_int
         getattr(lib, err_fn).restype = ctypes.c_char_p
         getattr(lib, err_fn).argtypes = [ctypes.c_int]

@@ -4,7 +4,8 @@ PyTorch port of ``deepfactors_tpu/parallel/dist_ba.py``. Every factor row
 carries its own gathered images, proximity, code Jacobian and gradients, so
 a process holds only its shard of the factors; it linearises the shard in
 one unfused ``dense_sfm.sfm_step_batch`` call with sampled Sobel gradients
-(one ``dense_warp_batch`` kernel launch), assembles the dense [D, D] system
+(per chunk of factors, one ``dense_warp_batch`` and one ``jacobian_stack``
+kernel launch, then the JtJ ``bmm``), assembles the dense [D, D] system
 (D = K*(6+CS)), and the solve with Schur elimination of the code blocks and
 the variable update run replicated.
 

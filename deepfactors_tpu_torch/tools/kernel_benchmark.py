@@ -6,7 +6,8 @@ launch configurations). The same problem (the synthetic pair, depth 2.0, a
 seeded code Jacobian, ``SfmParams(0.3, 2.0, 0.0, 2)``) and the same rows:
   - ``sfm_step`` over a batch B = 1, 2, 4, 8, 16 through
     ``dense_sfm.sfm_step_batch`` (the port's ``jax.vmap(sfm_step)``,
-    sampled gradients: ``dense_warp_batch``), and at B = 1 also through
+    sampled gradients: ``dense_warp_batch``, ``jacobian_stack``), and at
+    B = 1 also through
     ``dense_sfm.sfm_step`` (sampled: ``bilinear_warp_planes``);
   - ``se3_step`` at each level's crop (``se3_gram_batch``);
   - ``gaussian_blur_down``, ``sobel_gradients``, ``update_depth``;

@@ -33,6 +33,7 @@ from deepfactors_tpu_torch.mapping import factors as tfct
 from deepfactors_tpu_torch.mapping import map_state as tms
 from deepfactors_tpu_torch.ops import dense_sfm as tds
 from deepfactors_tpu_torch.ops.kernels import dense_warp as tdw
+from deepfactors_tpu_torch.ops.kernels import jacobian_stack as tjs
 
 torch.set_num_threads(2)
 H, W = 32, 128
@@ -404,4 +405,5 @@ def test_depth_prior_batch_matches_jax():
 
 def test_cpu_tensors_never_launch_the_warp_kernels():
     assert tdw.LAUNCHES == {"dense_warp_batch": 0, "bilinear_warp_planes": 0}
+    assert tjs.LAUNCHES == {"jacobian_stack": 0}
     assert jax.devices()[0].platform == "cpu"

@@ -52,6 +52,7 @@ def test_port_and_chip_smoke_import_without_jax():
     seen = r.stdout.strip().splitlines()[-1].split()
     assert len(seen) >= 77                                # every module seen
     for mod in ("ops.kernels.dense_warp", "ops.kernels.sfm_error",
+                "ops.kernels.jacobian_stack",
                 "parallel.dist_ba", "parallel.large_map",
                 "parallel.multi_seq", "parallel.dryrun", "parallel.multihost",
                 "loop.vocabulary", "loop.loop_detector",
